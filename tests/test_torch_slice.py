@@ -1,0 +1,184 @@
+"""The port's closed-loop evaluation slice end to end, on the CPU.
+
+- `rl.evaluation` against the JAX package's `rl.evaluation.evaluate` on
+  handed-across airframes and initial states;
+- the fused path (`ops.eval`, plain version here) against the eager loop, and
+  the CLI's `--fused` and eager modes against each other;
+- entry points refuse to run without a card unless asked for the CPU;
+- the port and `chip_smoke.py` import neither JAX nor `raptor_tpu`;
+- `chip_smoke.py` exits non-zero with no result where there is no card.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from raptor_tpu.env import EnvConfig as JEnvConfig
+from raptor_tpu.env import L2F as JL2F
+from raptor_tpu.env.types import eval_parity_init as j_eval_parity_init
+from raptor_tpu.env import sample_population as jsample
+from raptor_tpu.rl import evaluation as jevaluation
+from raptor_tpu_torch.apps import evaluate as cli
+from raptor_tpu_torch.checkpoint import dynamics_params_from_numpy, from_numpy, h5
+from raptor_tpu_torch.checkpoint import state_from_numpy
+from raptor_tpu_torch.env import EnvConfig, L2F, eval_parity_init, presets
+from raptor_tpu_torch.env.types import State
+from raptor_tpu_torch.ops import eval as ops_eval
+from raptor_tpu_torch.ops import rollout as ops_rollout
+from raptor_tpu_torch.policy.raptor import Raptor
+from raptor_tpu_torch.rl import evaluation
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+H5 = "artifacts/student_rateFlagCurMix.h5"
+NPZ = "raptor_tpu_torch/data/student_rateFlagCurMix.npz"
+STATS = ["return_mean", "return_std", "episode_length_mean", "episode_length_std",
+         "share_terminated"]
+
+
+def to_np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def handed_across():
+    """64 JAX-sampled airframes and the initial states JAX's evaluate() draws
+    from its key (attitudes up to 1 rad)."""
+    n, key = 64, jax.random.key(7)
+    jparams = jsample(jax.random.key(3), n)
+    jenv = JL2F(JEnvConfig(init=j_eval_parity_init()))
+    es, _ = jax.vmap(jenv.reset)(jax.random.split(key, n), jparams)
+    return (jenv, jparams, key, n, dynamics_params_from_numpy(to_np(jparams), "cpu"),
+            state_from_numpy(to_np(es.dynamics), "cpu"))
+
+
+def test_evaluate_matches_jax(handed_across):
+    jenv, jparams, key, n, tparams, tstate = handed_across
+    steps = 100
+    p_np = h5.load_actor(H5)
+    step_j, carry_j = jevaluation.gru_policy_step(p_np, n)
+    ref = jevaluation.evaluate(jenv, jparams, step_j, carry_j, key, n, steps)
+    p_t = from_numpy(p_np, "cpu")
+    step_t, carry_t = evaluation.gru_policy_step(p_t, n)
+    got = evaluation.evaluate_from(
+        L2F(EnvConfig(init=eval_parity_init())), tparams, tstate, step_t, carry_t,
+        torch.Generator().manual_seed(0), steps,
+    )
+    for name in STATS:
+        np.testing.assert_allclose(
+            float(getattr(got, name)), float(getattr(ref, name)), rtol=1e-4, atol=1e-4,
+            err_msg=name,
+        )
+    assert float(got.episode_length_mean) > 90
+
+
+def test_fused_path_matches_eager_loop(handed_across):
+    """Fused and eager loops differ only in what a dead env's state freezes
+    to, which no statistic reads."""
+    *_, n, tparams, tstate = handed_across
+    p_t = from_numpy(h5.load_actor(NPZ), "cpu")
+    _, alive, length, ret = ops_eval.fused_policy_eval(p_t, tparams, tstate, 80, device="cpu")
+    step_t, carry_t = evaluation.gru_policy_step(p_t, n)
+    eager = evaluation.evaluate_from(
+        L2F(EnvConfig()), tparams, tstate, step_t, carry_t, torch.Generator(), 80
+    )
+    np.testing.assert_allclose(float(ret.mean()), float(eager.return_mean), rtol=1e-5)
+    assert float(length.mean()) == float(eager.episode_length_mean)
+    assert float(1 - alive.mean()) == float(eager.share_terminated)
+
+
+def test_cli_fused_and_eager_agree(capsys):
+    args = [NPZ, "--device", "cpu", "--n-airframes", "4", "--envs-per-airframe", "4",
+            "--episode-length", "60", "--eval-parity-init", "--seed", "5"]
+    fused = cli.main(args + ["--fused"])
+    eager = cli.main(args)
+    printed = json.loads(capsys.readouterr().out.split("\n}\n")[0] + "}")
+    assert printed == fused
+    assert fused.pop("kernel") == "fused"
+    assert fused.keys() == eager.keys()
+    assert fused["episodes"] == 16
+    for k in ("return/mean", "return/std", "episode_length/mean", "episode_length/std",
+              "share_terminated"):
+        np.testing.assert_allclose(fused[k], eager[k], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def test_cli_reads_h5_and_presets():
+    out = cli.main([H5, "--device", "cpu", "--airframe", "crazyflie",
+                    "--envs-per-airframe", "3", "--episode-length", "20"])
+    assert out["episodes"] == 3 and out["airframe"] == "crazyflie"
+    assert np.isfinite(out["return/mean"])
+
+
+ENTRY_POINTS = {
+    "Raptor": lambda: Raptor(NPZ),
+    "cli": lambda: cli.main([NPZ, "--fused", "--n-airframes", "1", "--envs-per-airframe", "1"]),
+    "fused_policy_eval": lambda: ops_eval.fused_policy_eval(
+        from_numpy(h5.load_actor(NPZ), "cpu"), presets.crazyflie(), _hover_state(), 5),
+    "make_fused_policy_eval": lambda: ops_eval.make_fused_policy_eval(
+        from_numpy(h5.load_actor(NPZ), "cpu"), 5),
+    "fused_rollout": lambda: ops_rollout.fused_rollout(
+        presets.crazyflie(), _hover_state(), torch.zeros(1, 4), 5),
+}
+
+
+def _hover_state():
+    z = torch.zeros(1, 3)
+    return State(z, torch.tensor([[1.0, 0, 0, 0]]), z, z, torch.full((1, 4), 0.7))
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
+
+
+def test_entry_points_run_on_cpu_when_asked():
+    _, alive, length = ops_rollout.fused_rollout(
+        presets.crazyflie(), _hover_state(), torch.zeros(1, 4), 5, device="cpu")
+    assert float(length[0]) == 5.0 and float(alive[0]) == 1.0
+    a = Raptor(NPZ, device="cpu").evaluate_step(np.zeros(22, np.float32))
+    assert a.shape == (4,) and np.all(np.isfinite(a))
+
+
+IMPORT_CHECK = """
+import importlib, pkgutil, sys
+sys.path.insert(0, {root!r})
+import raptor_tpu_torch
+for m in pkgutil.walk_packages(raptor_tpu_torch.__path__, "raptor_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "raptor_tpu"))
+assert not bad, bad
+print("clean", len([m for m in sys.modules if m.startswith("raptor_tpu_torch")]))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    proc = subprocess.run(
+        [sys.executable, "-c", IMPORT_CHECK.format(root=ROOT)],
+        capture_output=True, text=True, cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("clean")
+    assert int(proc.stdout.split()[1]) >= 15  # every module of the package was imported
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), alone)
+    for script, cwd in ((os.path.join(ROOT, "chip_smoke.py"), ROOT), (str(alone), tmp_path)):
+        proc = subprocess.run([sys.executable, script], capture_output=True, text=True,
+                              cwd=cwd, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
