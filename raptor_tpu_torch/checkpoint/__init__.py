@@ -1,6 +1,6 @@
 """Checkpoints, and the converters that carry numpy arrays (for example the
-JAX package's parameters, airframes and states) onto a device as the port's
-tensors."""
+JAX package's parameters, airframes, states and teacher populations) onto a
+device as the port's tensors."""
 
 from __future__ import annotations
 
@@ -49,3 +49,16 @@ def state_from_numpy(src, device) -> State:
     """A state given as arrays (mapping or attributes) -> `State` on `device`.
     One unbatched state becomes a batch of one."""
     return _dataclass_from_numpy(State, src, device, "position", 1)
+
+
+def teachers_from_numpy(actors_np, airframes_np, device):
+    """A teacher population given as arrays -> (stacked [K] actor dict
+    {"layers": [{"w": [K, in, out], "b": [K, out]}, ...]}, `DynamicsParams`
+    [K]) on `device`. `airframes_np` is a mapping or any object with the
+    field names as attributes."""
+    actors = {
+        "layers": [
+            {k: _tensor(layer[k], device) for k in ("w", "b")} for layer in actors_np["layers"]
+        ]
+    }
+    return actors, dynamics_params_from_numpy(airframes_np, device)

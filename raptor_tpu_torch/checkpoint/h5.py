@@ -163,6 +163,23 @@ def save_actor(
         ex.create_dataset("output", data=example_output)
 
 
+def load_mlp_actor(path: str) -> Dict[str, list]:
+    """A feedforward (teacher) actor from an HDF5 checkpoint:
+    {"layers": [{"w": [in, out], "b": [out]}, ...]} as f32 numpy arrays."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        layers_g = f["actor"]["layers"]
+        layers = [
+            {
+                "w": np.asarray(layers_g[i]["weights"]["parameters"], np.float32),
+                "b": np.asarray(layers_g[i]["biases"]["parameters"], np.float32),
+            }
+            for i in sorted(layers_g.keys(), key=int)
+        ]
+    return {"layers": layers}
+
+
 def verify_checkpoint(path: str, atol: float = 1e-3) -> float:
     """Replay the embedded golden I/O through the policy (f32, CPU) and return
     the max abs error; raises ValueError above `atol`."""

@@ -1,5 +1,6 @@
 // The kernels' per-env code (quad_step.cuh) looped over envs on the CPU, with
-// the same C interface as rollout.cu and eval.cu minus the stream. Built with
+// the same C interface as rollout.cu, eval.cu and collect.cu minus the stream,
+// plus the collect kernel's PRNG and sampler on arrays of counters. Built with
 // g++ so the CPU tests can hold the arithmetic the kernels run to the JAX
 // package and to the plain PyTorch versions.
 #include "quad_step.cuh"
@@ -33,6 +34,57 @@ extern "C" int raptor_eval_host(const float* weights, const float* params,
   for (long i = 0; i < n; ++i) {
     raptor::eval_env(i, n, weights, params, state, state_out, stats, n_steps,
                      dt, b, rw);
+  }
+  return 0;
+}
+
+extern "C" int raptor_collect_host(const float* weights, const float* params,
+                                   const float* state, float* out, int n,
+                                   int n_steps, float dt, float episode_length,
+                                   float pos_bound, float linvel_bound,
+                                   float angvel_bound, float position_range,
+                                   float max_angle, float angle_power,
+                                   float linear_velocity_std,
+                                   float angular_velocity_std, int rpm_at_hover,
+                                   unsigned int seed, unsigned int env_offset) {
+  const raptor::Bounds b{pos_bound, linvel_bound, angvel_bound};
+  const raptor::InitSpec init{position_range,      max_angle,
+                              angle_power,         linear_velocity_std,
+                              angular_velocity_std, rpm_at_hover};
+  for (long i = 0; i < n; ++i) {
+    raptor::collect_env(i, n, weights, params, state, out, n_steps, dt,
+                        episode_length, b, init, seed, env_offset);
+  }
+  return 0;
+}
+
+// hashed[k] = lowbias32(counters[k]); uniforms[k] = uniform01(counters[k], draw)
+extern "C" int raptor_hash_host(const unsigned int* counters,
+                                unsigned int* hashed, float* uniforms, int n,
+                                unsigned int draw) {
+  for (int k = 0; k < n; ++k) {
+    hashed[k] = raptor::lowbias32(counters[k]);
+    uniforms[k] = raptor::uniform01(counters[k], draw);
+  }
+  return 0;
+}
+
+// state_out[:, k] = sample_state(params[:, k], counters[k]); [17, n]
+extern "C" int raptor_sample_state_host(const float* params,
+                                        const unsigned int* counters,
+                                        float* state_out, int n,
+                                        float position_range, float max_angle,
+                                        float angle_power,
+                                        float linear_velocity_std,
+                                        float angular_velocity_std,
+                                        int rpm_at_hover) {
+  const raptor::InitSpec init{position_range,      max_angle,
+                              angle_power,         linear_velocity_std,
+                              angular_velocity_std, rpm_at_hover};
+  for (long i = 0; i < n; ++i) {
+    float s[raptor::N_STATE];
+    raptor::sample_state(raptor::ParamColumn{params + i, n}, counters[i], init, s);
+    for (int j = 0; j < raptor::N_STATE; ++j) state_out[j * n + i] = s[j];
   }
   return 0;
 }

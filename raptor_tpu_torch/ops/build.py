@@ -1,8 +1,9 @@
 """Build and load the port's native code from `raptor_tpu_torch/csrc/`.
 
-- `cuda_library()`: the CUDA kernels (`rollout.cu`, `eval.cu`), each source
-  compiled by its own `nvcc` process (all started together) for sm_90a, then
-  linked into one shared library with a plain C interface, loaded with ctypes.
+- `cuda_library()`: the CUDA kernels (`rollout.cu`, `eval.cu`, `collect.cu`),
+  each source compiled by its own `nvcc` process (all started together) for
+  sm_90a, then linked into one shared library with a plain C interface, loaded
+  with ctypes.
 - `host_library()`: `host_shim.cpp`, the kernels' per-env code looped on the
   CPU, built with g++ for the CPU tests.
 
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raptor_tpu_torch"
 HEADER = "quad_step.cuh"
-CUDA_SOURCES = ("rollout.cu", "eval.cu")
+CUDA_SOURCES = ("rollout.cu", "eval.cu", "collect.cu")
 HOST_SOURCE = "host_shim.cpp"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,11 +34,16 @@ NVCC_FLAGS = (
 )
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 # pointers..., n, n_steps, dt, pos_bound, linvel_bound, angvel_bound
 ROLLOUT_ARGS = [_P] * 5 + [_I, _I] + [_F] * 4
 # weights, params, state, out, stats, n, n_steps, dt, bounds(3), reward(7)
 EVAL_ARGS = [_P] * 5 + [_I, _I] + [_F] * 4 + [_F] * 7
+# position_range, max_angle, angle_power, linear/angular velocity std, rpm_at_hover
+INIT_ARGS = [_F] * 5 + [_I]
+# weights, params, state, out, n, n_steps, dt, episode_length, bounds(3),
+# init(6), seed, env_offset
+COLLECT_ARGS = [_P] * 4 + [_I, _I] + [_F] * 5 + INIT_ARGS + [_U, _U]
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -114,11 +120,16 @@ def _load(kind: str, sources, flags, build, signatures) -> ctypes.CDLL:
 
 
 def cuda_library() -> ctypes.CDLL:
-    """The CUDA kernels, built on first call. Entry points `raptor_rollout` and
-    `raptor_eval` take a stream last and return cudaGetLastError()."""
+    """The CUDA kernels, built on first call. Entry points `raptor_rollout`,
+    `raptor_eval` and `raptor_collect` take a stream last and return
+    cudaGetLastError()."""
     return _load(
         "raptor_cuda", CUDA_SOURCES, NVCC_FLAGS, _build_cuda,
-        {"raptor_rollout": ROLLOUT_ARGS + [_P], "raptor_eval": EVAL_ARGS + [_P]},
+        {
+            "raptor_rollout": ROLLOUT_ARGS + [_P],
+            "raptor_eval": EVAL_ARGS + [_P],
+            "raptor_collect": COLLECT_ARGS + [_P],
+        },
     )
 
 
@@ -130,8 +141,16 @@ def cuda_build_log() -> str:
 
 def host_library() -> ctypes.CDLL:
     """The kernels' per-env code built for the CPU (`raptor_rollout_host`,
-    `raptor_eval_host`: the CUDA entry points without the stream)."""
+    `raptor_eval_host`, `raptor_collect_host`: the CUDA entry points without
+    the stream; `raptor_hash_host` and `raptor_sample_state_host`: the collect
+    kernel's PRNG and sampler on arrays of counters)."""
     return _load(
         "raptor_host", (HOST_SOURCE,), GXX_FLAGS, _build_host,
-        {"raptor_rollout_host": ROLLOUT_ARGS, "raptor_eval_host": EVAL_ARGS},
+        {
+            "raptor_rollout_host": ROLLOUT_ARGS,
+            "raptor_eval_host": EVAL_ARGS,
+            "raptor_collect_host": COLLECT_ARGS,
+            "raptor_hash_host": [_P, _P, _P, _I, _U],
+            "raptor_sample_state_host": [_P, _P, _P, _I] + INIT_ARGS,
+        },
     )

@@ -16,6 +16,7 @@ import torch
 from raptor_tpu_torch.env.quad import L2F
 from raptor_tpu_torch.env.types import DynamicsParams, State, where
 from raptor_tpu_torch.policy import network
+from raptor_tpu_torch.rl import networks
 
 
 class EvalStats(NamedTuple):
@@ -91,6 +92,17 @@ def evaluate(
     return evaluate_from(
         env, params, es.dynamics, policy_step, policy_carry, generator, episode_length
     )
+
+
+def mlp_policy_step(actor_params, actor_obs_dim: Optional[int] = None):
+    """(step fn, empty carry) for a feedforward SAC actor's mean action, on
+    the first `actor_obs_dim` observation channels where given."""
+
+    def step(carry, obs):
+        o = obs if actor_obs_dim is None else obs[..., :actor_obs_dim]
+        return carry, networks.actor_mean(actor_params, o)
+
+    return step, ()
 
 
 def gru_policy_step(policy_params: network.Params, batch_size: int):

@@ -9,15 +9,22 @@ left out):
 
 Tolerances are chip_smoke.py's: rollout atol 2e-4 / rtol 1e-3 over 20 steps
 with termination off; eval alive and length equal on >= 99.9 % of envs, and
-on those return within 5e-3 / 1e-3 and position within 1e-3, over 25 steps.
+on those return within 5e-3 / 1e-3 and position within 1e-3, over 25 steps;
+collect reset masks equal and observations within 2e-4 over 20 steps without
+resets, reset masks equal on >= 99.9 % of entries under truncation, and
+observations within 1e-5 where every row is a fresh draw of the in-kernel
+PRNG; the same at widths that are no multiple of the warp size (37, and the
+944 and 5,528 envs of a distillation round and of the 691-teacher union).
 """
 
 import pytest
 import torch
 
 from raptor_tpu_torch.checkpoint import from_numpy, h5
-from raptor_tpu_torch.env import EnvConfig, L2F
+from raptor_tpu_torch.env import EnvConfig, InitConfig, L2F, TerminationConfig
 from raptor_tpu_torch.env.randomization import sample_population
+from raptor_tpu_torch.env.types import DynamicsParams
+from raptor_tpu_torch.ops import collect as ops_collect
 from raptor_tpu_torch.ops import eval as ops_eval
 from raptor_tpu_torch.ops import rollout as ops_rollout
 
@@ -93,6 +100,119 @@ def test_nan_state_ends_its_env_only(inputs, kernel):
     torch.testing.assert_close(stats[:, keep], ref_stats[:, keep], atol=0, rtol=0)
 
 
+GENTLE = EnvConfig(
+    init=InitConfig(max_angle=0.2, linear_velocity_std=0.02, angular_velocity_std=0.02),
+    termination=TerminationConfig(position_bound=50.0, angular_velocity_bound=1000.0),
+)
+
+
+def _collect_both(inputs, config, n_steps, seed, state=None):
+    ps, ss, _, policy, weights = inputs
+    ss = ss if state is None else state
+    got = ops_collect.collect_soa(weights, ps, ss, n_steps, seed, 0, config)
+    want = ops_collect.collect_plain(policy, ps, ss, n_steps, seed, 0, config)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+def test_collect_kernel_matches_plain_without_resets(inputs, card):
+    ps = inputs[0]
+    frames = DynamicsParams.from_soa(ps)
+    state = L2F(GENTLE).sample_state(frames, torch.Generator(device=card).manual_seed(2))
+    before = ops_collect.launches
+    (obs, reset), (ref_obs, ref_reset) = _collect_both(inputs, GENTLE, 20, 3, state.to_soa())
+    assert ops_collect.launches == before + 1
+    assert obs.shape == (20, N, 22) and reset.shape == (20, N)
+    assert float(ref_reset.sum()) == 0.0
+    torch.testing.assert_close(reset, ref_reset, atol=0, rtol=0)
+    torch.testing.assert_close(obs, ref_obs, atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_collect_kernel_truncates_and_resets_like_plain(inputs):
+    config = EnvConfig(episode_length=8)
+    (obs, reset), (ref_obs, ref_reset) = _collect_both(inputs, config, 20, 11)
+    assert float((reset == ref_reset).float().mean()) >= 0.999
+    assert float(reset[7].mean()) > 0.9 and float(reset[15].mean()) > 0.9
+    after = obs[8][reset[7] == 1.0]  # rows right after a reset are fresh samples
+    assert float(after[:, 0:3].abs().max()) <= config.init.position_range + 1e-6
+    assert float(after[:, 18:22].abs().max()) == 0.0
+    rot = after[:, 3:12].reshape(-1, 3, 3)
+    eye = torch.eye(3, device=rot.device).expand_as(rot)
+    torch.testing.assert_close(rot @ rot.transpose(1, 2), eye, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_collect_kernel_prng_matches_plain(inputs):
+    """episode_length 1: every row from 1 on is a fresh draw, so the
+    observations pin the in-kernel hash, uniforms and sampler."""
+    config = EnvConfig(episode_length=1)
+    (obs, reset), (ref_obs, ref_reset) = _collect_both(inputs, config, 10, 5)
+    assert float(reset.min()) == 1.0 and float(ref_reset.min()) == 1.0
+    torch.testing.assert_close(obs, ref_obs, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 944, 5528])
+def test_collect_kernel_matches_plain_at_ragged_widths(inputs, card, n):
+    """n is no multiple of 32: the last one-warp block is partly filled and
+    the channel stride n of the [T, 23, n] buffer is unaligned."""
+    _, _, _, policy, weights = inputs
+    g = torch.Generator(device=card).manual_seed(n)
+    frames = sample_population(g, n)
+    ps = frames.to_soa()
+    state = L2F(GENTLE).sample_state(frames, g).to_soa()
+    obs, reset = ops_collect.collect_soa(weights, ps, state, 20, 3, 0, GENTLE)
+    ref_obs, ref_reset = ops_collect.collect_plain(policy, ps, state, 20, 3, 0, GENTLE)
+    assert obs.shape == (20, n, 22) and reset.shape == (20, n)
+    assert float(ref_reset.sum()) == 0.0
+    torch.testing.assert_close(reset, ref_reset, atol=0, rtol=0)
+    torch.testing.assert_close(obs, ref_obs, atol=2e-4, rtol=0)
+    config = EnvConfig(episode_length=1)  # every row from 1 on is a fresh draw
+    obs, reset = ops_collect.collect_soa(weights, ps, state, 10, 5, 0, config)
+    ref_obs, ref_reset = ops_collect.collect_plain(policy, ps, state, 10, 5, 0, config)
+    assert float(reset.min()) == 1.0 and float(ref_reset.min()) == 1.0
+    torch.testing.assert_close(obs, ref_obs, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_collect_nan_state_resets_its_env_only(inputs, card):
+    ps = inputs[0]
+    weights = inputs[4]
+    frames = DynamicsParams.from_soa(ps)
+    state = L2F(GENTLE).sample_state(
+        frames, torch.Generator(device=card).manual_seed(2)).to_soa()
+    bad = state.clone()
+    bad[1, 3] = float("nan")  # env 3: non-finite position
+    obs, reset = ops_collect.collect_soa(weights, ps, bad, 20, 3, 0, GENTLE)
+    ref_obs, ref_reset = ops_collect.collect_soa(weights, ps, state, 20, 3, 0, GENTLE)
+    torch.cuda.synchronize()
+    assert float(reset[0, 3]) == 1.0 and float(reset[1:, 3].sum()) == 0.0
+    assert bool(torch.isnan(obs[0, 3, 1])) and bool(torch.isfinite(obs[1:, 3]).all())
+    # row 1 is a fresh start: inside the init box, zero previous action
+    assert float(obs[1, 3, 0:3].abs().max()) <= GENTLE.init.position_range + 1e-6
+    assert float(obs[1, 3, 18:22].abs().max()) == 0.0
+    keep = torch.arange(N, device=card) != 3
+    torch.testing.assert_close(obs[:, keep], ref_obs[:, keep], atol=0, rtol=0)
+    torch.testing.assert_close(reset[:, keep], ref_reset[:, keep], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_collect_env_offset_split_equals_the_whole(inputs):
+    ps, ss, _, _, weights = inputs
+    config, half = EnvConfig(episode_length=1), N // 2
+    whole = ops_collect.collect_soa(weights, ps, ss, 6, 5, 0, config)
+    parts = [
+        ops_collect.collect_soa(weights, ps[:, lo:lo + half].contiguous(),
+                                ss[:, lo:lo + half].contiguous(), 6, 5, lo, config)
+        for lo in (0, half)
+    ]
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        torch.testing.assert_close(torch.cat([p[i] for p in parts], 1), whole[i], atol=0, rtol=0)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_mixed_devices(inputs):
     ps, ss, act, _, weights = inputs
@@ -100,3 +220,5 @@ def test_wrappers_reject_mixed_devices(inputs):
         ops_rollout.rollout_soa(ps.cpu(), ss, act, 1)
     with pytest.raises(ValueError):
         ops_eval.eval_soa(weights.cpu(), ps, ss, 1)
+    with pytest.raises(ValueError):
+        ops_collect.collect_soa(weights, ps.cpu(), ss, 1, 0)

@@ -1,9 +1,11 @@
-"""The port's closed-loop evaluation slice end to end, on the CPU.
+"""The port's slices end to end, on the CPU: closed-loop evaluation, and
+distillation through its two CLIs.
 
 - `rl.evaluation` against the JAX package's `rl.evaluation.evaluate` on
   handed-across airframes and initial states;
 - the fused path (`ops.eval`, plain version here) against the eager loop, and
   the CLI's `--fused` and eager modes against each other;
+- the distillation CLI and the collect benchmark CLI at a tiny size;
 - entry points refuse to run without a card unless asked for the CPU;
 - the port and `chip_smoke.py` import neither JAX nor `raptor_tpu`;
 - `chip_smoke.py` exits non-zero with no result where there is no card.
@@ -25,11 +27,14 @@ from raptor_tpu.env import L2F as JL2F
 from raptor_tpu.env.types import eval_parity_init as j_eval_parity_init
 from raptor_tpu.env import sample_population as jsample
 from raptor_tpu.rl import evaluation as jevaluation
+from raptor_tpu_torch.apps import bench_collect as bench_cli
 from raptor_tpu_torch.apps import evaluate as cli
+from raptor_tpu_torch.apps import post_training as distill_cli
 from raptor_tpu_torch.checkpoint import dynamics_params_from_numpy, from_numpy, h5
 from raptor_tpu_torch.checkpoint import state_from_numpy
 from raptor_tpu_torch.env import EnvConfig, L2F, eval_parity_init, presets
 from raptor_tpu_torch.env.types import State
+from raptor_tpu_torch.ops import collect as ops_collect
 from raptor_tpu_torch.ops import eval as ops_eval
 from raptor_tpu_torch.ops import rollout as ops_rollout
 from raptor_tpu_torch.policy.raptor import Raptor
@@ -37,6 +42,7 @@ from raptor_tpu_torch.rl import evaluation
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H5 = "artifacts/student_rateFlagCurMix.h5"
+PACK = "artifacts/teachers_seed900_hovergate.npz"
 NPZ = "raptor_tpu_torch/data/student_rateFlagCurMix.npz"
 STATS = ["return_mean", "return_std", "episode_length_mean", "episode_length_std",
          "share_terminated"]
@@ -115,7 +121,69 @@ def test_cli_reads_h5_and_presets():
     assert np.isfinite(out["return/mean"])
 
 
+def test_post_training_cli_runs_on_cpu(tmp_path, capsys):
+    """Two aggregated rounds with the demonstrator flags on 3 of the pack's
+    teachers: a verified checkpoint, the loss history, the round-hook
+    evaluation and the per-phase seconds come back."""
+    path, summary = distill_cli.main([
+        PACK, "--device", "cpu", "--rounds", "2", "--envs-per-teacher", "2",
+        "--teachers-per-round", "3", "--aggregate-capacity", "16", "--grad-steps-per-round", "2",
+        "--batch-size", "4", "--eval-every-rounds", "2", "--teacher-mix-rounds", "3",
+        "--collect-angle-power", "4", "--demo-tilt", "1.2", "--demo-rate", "5.0",
+        "--demo-adaptive", "--demo-w-cap", "999", "--demo-k-w", "999", "--demo-c-flip", "0.5",
+        "--demo-c-lag", "1.2", "--demo-c-bw", "3.0", "--eval-max-angle", "1.0",
+        "--experiments-dir", str(tmp_path),
+    ], return_summary=True)
+    assert "self-test max-err" in capsys.readouterr().out
+    assert os.path.isfile(path) and path.startswith(str(tmp_path))
+    assert h5.verify_checkpoint(path) < 1e-5
+    student = from_numpy(h5.load_actor(path), "cpu")
+    assert student["gru_1"]["weights_input"].shape == (48, 16)
+    assert len(summary["loss_history"]) == 2 and np.all(np.isfinite(summary["loss_history"]))
+    (evaluated,) = summary["evaluations"]
+    assert evaluated["round"] == 1 and evaluated["env_steps"] == 2 * 500 * 3 * 2
+    five = ["evaluation/return/mean", "evaluation/return/std", "evaluation/episode_length/mean",
+            "evaluation/episode_length/std", "evaluation/share_terminated"]
+    assert all(np.isfinite(evaluated[k]) for k in five)
+    assert all(np.isfinite(evaluated[k]) for k in
+               ("crazyflie/return/mean", "fullinit/return/mean", "fullinit/share_terminated"))
+    assert {k: len(v) for k, v in summary["seconds"].items()} == {
+        "collect": 2, "aggregate_add": 2, "train": 2}
+    run_dir = os.path.dirname(os.path.dirname(path))
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        assert json.load(f)["checkpoint"] == path
+    names = os.listdir(os.path.dirname(path))
+    assert len(names) == 2  # the round-hook checkpoint and the final one
+    assert any(n.startswith("events.out.tfevents") for n in os.listdir(run_dir))
+
+
+def test_bench_collect_cli_runs_on_cpu(tmp_path):
+    out = str(tmp_path / "report.json")
+    before = ops_collect.launches
+    report = bench_cli.main(["--synthetic", "4", "--rollout-length", "20", "--reps", "1",
+                             "--device", "cpu", "--out", out])
+    assert ops_collect.launches == before  # the CPU path runs the plain version
+    assert report["parity_ok"] and report["parity_step1_err"] < 1e-4
+    assert report["parity_resets_first2"] == 0.0 and report["labels_finite_in_unit_box"]
+    assert report["teachers"] == 4 and report["env_steps_per_round"] == 4 * 8 * 20
+    assert report["device"] == "cpu"
+    for key in ("eager_collect_s", "eager_collect_steps_per_s", "fused_collect_s",
+                "fused_collect_steps_per_s", "speedup", "trajectory_drift_100steps"):
+        assert np.isfinite(report[key]) and report[key] >= 0.0
+    with open(out) as f:
+        assert json.load(f) == report
+    with pytest.raises(SystemExit):
+        bench_cli.main(["--device", "cpu"])  # neither a manifest nor --synthetic
+
+
 ENTRY_POINTS = {
+    "post_training_cli": lambda: distill_cli.main([PACK, "--rounds", "1"]),
+    "bench_collect_cli": lambda: bench_cli.main(["--synthetic", "2", "--rollout-length", "4"]),
+    "load_teachers": lambda: distill_cli.load_teachers(PACK),
+    "make_fused_collect": lambda: ops_collect.make_fused_collect(
+        from_numpy(h5.load_actor(NPZ), "cpu"), 5),
+    "fused_collect": lambda: ops_collect.fused_collect(
+        from_numpy(h5.load_actor(NPZ), "cpu"), presets.crazyflie(), _hover_state(), 5, 0),
     "Raptor": lambda: Raptor(NPZ),
     "cli": lambda: cli.main([NPZ, "--fused", "--n-airframes", "1", "--envs-per-airframe", "1"]),
     "fused_policy_eval": lambda: ops_eval.fused_policy_eval(
@@ -169,7 +237,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("clean")
-    assert int(proc.stdout.split()[1]) >= 15  # every module of the package was imported
+    assert int(proc.stdout.split()[1]) >= 30  # every module of the package was imported
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
