@@ -47,11 +47,35 @@ with a non-zero exit code and no result line:
    through the eval kernel, and one collect round of the trained student
    through the collect kernel at the round's shape (944 envs) feeds the
    aggregate and one gradient step;
-9. time each kernel and its plain version at the main-path shapes (CUDA
+9. FMA peak kernel vs its plain version at depth 64 x 32 steps on random
+   inputs in [0.5, 1.5], at the size that fills the card and at a ragged one
+   (100,003 elements): rtol 1e-5 (both round once a step; see
+   `ops/fma_peak.py`); on inputs of 1.0 every output must equal element 0 bit
+   for bit. Then the roofline main path with launch counts from 0:
+   `apps.roofline.main` must launch the kernel at two depths, report a peak,
+   a value within 2 % of the closed form, and at most 105 % of the data
+   sheet's FP32 rate;
+10. the bench main path: `python -m raptor_tpu_torch.bench` in a subprocess at
+   full widths (its five sub-benches each in their own process), the
+   distillation sub-bench cut in depth to 8 gradient steps a round instead of
+   183: five finite values, and the launch counts each sub-bench read from 0
+   after its warm-up: the rollout sub-bench must have launched the rollout
+   kernel >= 50 times, the eval sub-bench the eval kernel >= 25 times, the
+   three eager sub-benches no kernel; then `apps.roofline.main --bench` on
+   that line prints the utilizations against the measured peak;
+11. the teacher-farm main path: `apps.pre_training.main` at the production
+   wave's flags (128 teachers x 32 envs, replay capacity 1,536, row sampling,
+   10 super-steps a call) cut in depth only (3 calls, one evaluation, one
+   export): finite metrics, a manifest of 128 teachers that `load_teachers`
+   reads; prints seconds per super-step, env-steps/s, peak device memory and
+   the launch counts read from 0 right after it (the farm is eager PyTorch
+   and must launch no kernel). Then `apps.post_training.main` distills that manifest for one tiny round;
+12. time each kernel and its plain version at the main-path shapes (CUDA
    events, median of 5 after a warm-up; 3 for the collect's plain version)
-   and print one `{"kernels": [...]}` line with the launches of phases 5 and
-   7, error, times and the bound;
-10. last line: {"ok": true, "device": {...}}.
+   and print one `{"kernels": [...]}` line with the launches of phases 5, 7
+   and 9 (`launches`), those of the bench's processes in phase 10
+   (`bench_launches`), error, times and the bound;
+13. last line: {"ok": true, "device": {...}}.
 
 It imports neither JAX nor the JAX package. Without a CUDA device, or without
 the `raptor_tpu_torch` package beside it, it exits non-zero and prints no
@@ -86,22 +110,12 @@ RECIPE = [
 ]
 DEPTH = ["--rounds", "2", "--grad-steps-per-round", "8", "--eval-every-rounds", "2"]
 
-# FP32 operations per env-step, counted from csrc/quad_step.cuh (each add,
-# sub, mul, div, sqrt and compare is one): derivative 210, so RK4 = 4 x 210 +
-# 3 stage updates (34 + 68 + 68) + combination 51 + renormalize 13 + rpm clip
-# 8 = 1,082; termination 20.
-FLOPS_ROLLOUT_STEP = 1_082 + 20
-# eval adds observation 30, Dense 22->16 + ReLU 720, GRU 16 x (16 x 12) = 3,072
-# plus gates 16 x 15 = 240, Dense 16->4 + clip 136, setpoints 28, reward 42,
-# accumulators 2; its 48 expf/tanhf per env-step run on the special-function
-# unit, which the peak table below does not rate, and are not counted.
-FLOPS_EVAL_STEP = FLOPS_ROLLOUT_STEP + 30 + 720 + 3_072 + 240 + 136 + 28 + 42 + 2
-# collect is eval without reward and accumulators, plus the truncation test and
-# step count (3); a reset adds 14 hashed uniforms (13 integer operations and 3
-# float each), 7 Box-Muller pairs (6 each, their log/sqrt/sin/cos not
-# counted), the quaternion and scalings (30) and the hover speed (15).
-FLOPS_COLLECT_STEP = FLOPS_EVAL_STEP - 42 - 2 + 3
-FLOPS_COLLECT_RESET = 14 * 16 + 7 * 6 + 30 + 15
+# the production teacher wave (docs/MIGRATION.md), cut in depth only
+WAVE = ["--population", "128", "--steps-per-call", "10", "--replay-capacity", "1536",
+        "--sample-rows"]
+WAVE_DEPTH = ["--super-steps", "3", "--eval-every", "3", "--log-every", "1",
+              "--checkpoint-every", "0"]
+BENCH_GRAD_STEPS = 8  # the distillation sub-bench's gradient steps a round (full: 183)
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # (FP32 FLOP/s outside the tensor cores, device-memory bytes/s).
@@ -166,7 +180,15 @@ def main() -> int:
     from raptor_tpu_torch.apps import bench_collect as bench_collect_cli
     from raptor_tpu_torch.apps import evaluate as evaluate_cli
     from raptor_tpu_torch.apps import post_training as post_training_cli
+    from raptor_tpu_torch.apps import pre_training as pre_training_cli
+    from raptor_tpu_torch.apps import roofline as roofline_cli
+    # the operation counts behind every bound below: one source with the
+    # roofline report
+    from raptor_tpu_torch.apps.roofline import (
+        FLOPS_COLLECT_RESET, FLOPS_COLLECT_STEP, FLOPS_EVAL_STEP, FLOPS_ROLLOUT_STEP,
+    )
     from raptor_tpu_torch.checkpoint import from_numpy, h5
+    from raptor_tpu_torch.distill import population
     from raptor_tpu_torch.distill import post_training as distill
     from raptor_tpu_torch.distill.population import broadcast_airframe_to_envs, flatten_envs
     from raptor_tpu_torch.env import (
@@ -177,15 +199,12 @@ def main() -> int:
     from raptor_tpu_torch.ops import build
     from raptor_tpu_torch.ops import collect as ops_collect
     from raptor_tpu_torch.ops import eval as ops_eval
+    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
     from raptor_tpu_torch.ops import rollout as ops_rollout
-    from raptor_tpu_torch.rl import networks
+    from raptor_tpu_torch.rl import networks, runner, sac
 
     # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False,
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    print(roofline_cli.card_name_and_power_limit())
     kind = torch.cuda.get_device_name(0)
     print(f"torch device: {kind}")
     dev = torch.device("cuda", 0)
@@ -198,6 +217,15 @@ def main() -> int:
     for line in build.cuda_build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
+    sass = build.cuda_sass_counts("fma_peak_kernelILi32E")
+    if sass is None:
+        print("sass: cuobjdump not found beside nvcc, the FFMA count of fma_peak_kernel<32> "
+              "was not checked")
+    else:
+        # 32 steps x 8 chains = 256 FFMA an iteration of the inner loop
+        print(f"sass: fma_peak_kernel<32>: {sass[0]} FFMA of {sass[1]} instructions")
+        if sass[0] < 256:
+            raise AssertionError("fma_peak_kernel<32>: the unrolled FFMA body is not there")
 
     # 3. rollout kernel vs plain
     g = torch.Generator(device=dev).manual_seed(0)
@@ -414,7 +442,147 @@ def main() -> int:
     if all(bool(torch.equal(before[k], trained["dense_2"][k].detach())) for k in before):
         raise AssertionError("the gradient step on the collect kernel's output changed nothing")
 
-    # 9. timing at the main-path shapes
+    # 9. FMA peak kernel vs plain, then the roofline main path
+    n_full = ops_fma_peak.default_elements(dev)
+    fma_err, fma_depth = 0.0, 64
+    for n_el in (n_full, 100_003):
+        x = 0.5 + torch.rand(n_el, device=dev, generator=g)
+        got = ops_fma_peak.fma_peak(x, fma_depth)
+        want = ops_fma_peak.fma_peak_plain(x, fma_depth)
+        torch.cuda.synchronize()
+        fma_err = max(fma_err, check_close(f"fma_peak, {n_el} elements", got, want, 0.0, 1e-5))
+        ones = ops_fma_peak.fma_peak(torch.ones(n_el, device=dev), fma_depth)
+        if not bool((ones == ones[0]).all()):
+            raise AssertionError(f"fma_peak, {n_el} elements: outputs of equal inputs differ")
+        # 9 ulp a step exactly, where exact arithmetic adds 8.84
+        if (float(ones[0]) != 1.0 + fma_depth * 32 * 9 * 2.0**-23
+                or abs(float(ones[0]) / ops_fma_peak.closed_form(fma_depth * 32) - 1.0) > 1e-4):
+            raise AssertionError(f"fma_peak: {float(ones[0])} is not the closed form")
+    print(f"fma_peak: kernel vs plain, {fma_depth} x 32 steps on {n_full} and 100003 elements, "
+          f"max abs err {fma_err:.3e}; equal inputs give equal outputs")
+    x_full = 0.5 + torch.rand(n_full, device=dev, generator=g)
+    fma_plain_ms = time_ms(torch, lambda: ops_fma_peak.fma_peak_plain(x_full, fma_depth), reps=3)
+    ops_fma_peak.launches = 0
+    with tempfile.TemporaryDirectory() as roof_dir:
+        roof_out = os.path.join(roof_dir, "roofline.json")
+        peak = roofline_cli.main(["--out", roof_out, "--device", "cuda"])["vpu_peak"]
+        launches["fma_peak"] = ops_fma_peak.launches
+        pk = peak["fma_peak_flops_per_s"]
+        if ops_fma_peak.launches < 2 or pk is None:
+            raise AssertionError(f"roofline main path: {ops_fma_peak.launches} launches, peak {pk}")
+        print(f"roofline main path launches: {ops_fma_peak.launches}; measured FP32 FMA peak "
+              f"{pk / 1e12:.2f} TFLOP/s = {100 * pk / peak_flops:.1f} % of the {sku} data "
+              f"sheet's {peak_flops / 1e12:.0f} ({peak['card']}); {peak['elements']} elements, "
+              f"{peak['chains_per_thread']} chains a thread, block {peak['block']}, grid "
+              f"{peak['grid']}; t_lo {peak['t_lo_s']:.4f} s, t_hi {peak['t_hi_s']:.4f} s")
+        if pk > 1.05 * peak_flops:
+            raise AssertionError("measured FMA peak above 105 % of the data sheet's: the "
+                                 "operation count or the clock is wrong")
+        if abs(peak["value_hi"] / peak["closed_form_hi"] - 1.0) > 0.02:
+            raise AssertionError(f"fma_peak value {peak['value_hi']} vs closed form "
+                                 f"{peak['closed_form_hi']}")
+
+        # 10. the bench main path (its own processes), then roofline --bench
+        t0 = time.perf_counter()
+        bench = subprocess.run(
+            [sys.executable, "-m", "raptor_tpu_torch.bench", "--train-grad-steps",
+             str(BENCH_GRAD_STEPS)],
+            cwd=ROOT, stdout=subprocess.PIPE, text=True, timeout=900)
+        bench_line = bench.stdout.strip().splitlines()[-1] if bench.stdout.strip() else ""
+        print(f"bench ({BENCH_GRAD_STEPS} gradient steps a distillation round instead of 183, "
+              f"wall {time.perf_counter() - t0:.1f} s): {bench_line}")
+        if bench.returncode != 0:
+            raise AssertionError(f"bench exited {bench.returncode}")
+        detail = json.loads(bench_line)["detail"]
+        five_rates = [detail[k] for k in (
+            "fused_pallas_rollout", "fused_policy_eval", "full_env_step_xla",
+            "train_env_steps_per_s", "pretrain_env_steps_per_s")]
+        if any(v is None or not math.isfinite(v) or v <= 0 for v in five_rates):
+            raise AssertionError(f"bench: a sub-bench gave no value: {detail}")
+        # each sub-bench's process counted its wrappers' launches from 0 after
+        # its warm-up
+        by_sub = detail["launches"]
+        bench_launches = {k: sum(sub[k] for sub in by_sub.values())
+                          for k in ("rollout", "eval", "collect", "fma_peak")}
+        print(f"bench main path launches: {by_sub}")
+        eager = ("full_env_step_xla", "train_env_steps_per_s", "pretrain_env_steps_per_s")
+        if (by_sub["fused_pallas_rollout"]["rollout"] < 50
+                or by_sub["fused_policy_eval"]["eval"] < 25
+                or any(n for name in eager for n in by_sub[name].values())):
+            raise AssertionError(f"bench main path: launches {by_sub}")
+        bench_path = os.path.join(roof_dir, "bench.json")
+        with open(bench_path, "w") as f:
+            f.write(bench_line + "\n")
+        roof = roofline_cli.main(["--bench", bench_path, "--out", roof_out, "--skip-peak"])
+        print(f"roofline --bench: fused_rollout_vpu_utilization "
+              f"{roof['fused_rollout_vpu_utilization']:.4f}, fused_eval_vpu_utilization "
+              f"{roof['fused_eval_vpu_utilization']:.4f}, env_step_xla_vpu_utilization "
+              f"{roof['env_step_xla_vpu_utilization']:.6f} of the measured peak")
+
+    # 11. the teacher-farm main path, cut in depth, then distillation from it
+    with tempfile.TemporaryDirectory() as exp_dir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops_eval.launches = ops_rollout.launches = ops_collect.launches = 0
+        ops_fma_peak.launches = 0
+        t0 = time.perf_counter()
+        manifest, wave = pre_training_cli.main(
+            [*WAVE, *WAVE_DEPTH, "--experiments-dir", exp_dir, "--device", "cuda"],
+            return_summary=True)
+        wave_wall = time.perf_counter() - t0
+        wave_mem = torch.cuda.max_memory_allocated()
+        farm_launches = {"rollout": ops_rollout.launches, "eval": ops_eval.launches,
+                         "collect": ops_collect.launches, "fma_peak": ops_fma_peak.launches}
+        print(f"teacher-farm main path launches: {farm_launches}")
+        if any(farm_launches.values()):
+            raise AssertionError("the teacher farm is eager PyTorch, yet a kernel launched")
+        wave_actors, wave_frames = post_training_cli.load_teachers(manifest, dev)
+        scalars = [v for row in wave["metrics"] + wave["evaluations"]
+                   for k, v in row.items() if k != "step"]
+        if (networks.n_actors(wave_actors) != 128 or wave_frames.mass.shape[0] != 128
+                or len(wave["metrics"]) != 3 or len(wave["evaluations"]) != 1
+                or not all(math.isfinite(v) for v in scalars)):
+            raise AssertionError(f"teacher-farm main path: {wave}")
+        per_call = statistics.median(wave["seconds_per_call"])
+        print(f"teacher farm: 128 teachers x 32 envs, {wave['seconds_per_call']} s a call of 10 "
+              f"super-steps ({per_call / 10:.4f} s a super-step, "
+              f"{128 * wave['env_steps_per_call_per_teacher'] / per_call:.0f} env-steps/s), "
+              f"wall {wave_wall:.1f} s, peak device memory {wave_mem / 2**30:.2f} GiB; "
+              f"last metrics {wave['metrics'][-1]}, evaluation {wave['evaluations'][-1]}")
+        # where a super-step's time goes (outside the counted runs): collect and
+        # train timed apart at the wave's shape, and at an eighth of the
+        # teachers: equal times mean the host's launch rate is the limit
+        for k_pop in (128, 16):
+            pop_gen = torch.Generator(device=dev).manual_seed(5)
+            pop_cfg = population.PopulationConfig(
+                n_teachers=k_pop, envs_per_teacher=32, replay_capacity=1536, sample_rows=True)
+            pop_env = L2F(EnvConfig())
+            states, pop_params, run_cfg = population.population_init(
+                pop_gen, pop_env, population.sample_teacher_airframes(pop_gen, k_pop), pop_cfg)
+            states = population.make_population_warmup(pop_env, run_cfg)(states, pop_params)
+            phase_s = {}
+            for _ in range(2):  # the second pass is the warm one
+                for phase, fn in (
+                        ("collect", lambda: runner.collect(states, pop_env, pop_params, run_cfg)),
+                        ("train", lambda: runner.train(states, run_cfg, sac.SACConfig()))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    phase_s[phase] = time.perf_counter() - t0
+            print(f"super-step of {k_pop} teachers x 32 envs: collect (16 env steps) "
+                  f"{phase_s['collect']:.4f} s, train (16 gradient steps) {phase_s['train']:.4f} s")
+            del states
+        ckpt2, summary2 = post_training_cli.main(
+            [manifest, "--rounds", "1", "--envs-per-teacher", "4", "--aggregate-capacity", "512",
+             "--grad-steps-per-round", "2", "--batch-size", "16", "--eval-every-rounds", "1",
+             "--experiments-dir", exp_dir, "--device", "cuda"], return_summary=True)
+        if not all(math.isfinite(x) for x in summary2["loss_history"]):
+            raise AssertionError(f"distillation of the fresh teachers: {summary2}")
+        print(f"distillation of the fresh teachers: loss {summary2['loss_history']}, self-test "
+              f"max err {h5.verify_checkpoint(ckpt2):.2e}")
+
+    # 12. timing at the main-path shapes
     g_frames = torch.Generator(device=dev).manual_seed(0)
     m_frames = tree_map(lambda x: x.repeat_interleave(8, 0), sample_population(g_frames, N // 8))
     m_env = L2F(EnvConfig(init=eval_parity_init()))
@@ -457,7 +625,8 @@ def main() -> int:
         t_bytes = n_bytes / peak_bytes * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches[name], "bench_launches": bench_launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
@@ -478,6 +647,20 @@ def main() -> int:
     print(f"collect: obs.contiguous() of [{T_COLLECT}, {n_c}, 22] {dense_ms:.3f} ms "
           f"(not on the main path)")
 
+    # the FMA peak kernel's row: times from the roofline main path's run
+    for depth, t_s in zip(peak["depths"], (peak["t_lo_s"], peak["t_hi_s"])):
+        print(f"fma_peak: depth {depth}: kernel {t_s * 1e3:.3f} ms, bound "
+              f"{2.0 * 32 * depth * n_full / peak_flops * 1e3:.3f} ms ({sku} peaks)")
+    t_ops = 2.0 * 32 * peak["depths"][0] * n_full / peak_flops * 1e3
+    t_bytes = 8.0 * n_full / peak_bytes * 1e3
+    rows.append({
+        "name": "fma_peak", "route": "cuda", "source": "raptor_tpu_torch/csrc/fma_peak.cu",
+        "replaces": "raptor_tpu/apps/roofline.py:105", "launches": launches["fma_peak"],
+        "bench_launches": bench_launches["fma_peak"],
+        "max_abs_err": fma_err, "ms": peak["t_lo_s"] * 1e3, "ms_hi": peak["t_hi_s"] * 1e3,
+        "plain_ms": fma_plain_ms, "plain_depth": fma_depth, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+    })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """CLI: distillation post-training. Reads a teacher population (a `.npz`
 teacher pack, a manifest of packs, or a `checkpoints.txt` manifest of
-per-teacher `.h5` files with their `_dynamics.json`), distills the GRU student
+per-teacher `.h5` or `.npz` actor files with their `_dynamics.json`), distills the GRU student
 across it, logs the tfevents tags `loss`, `evaluation/*`, `crazyflie/*`, and
 exports the student with golden example I/O.
 
@@ -34,21 +34,26 @@ from raptor_tpu_torch.checkpoint import teachers_from_numpy
 from raptor_tpu_torch.device import resolve_device
 from raptor_tpu_torch.distill import post_training
 from raptor_tpu_torch.env import EnvConfig, L2F, eval_parity_init, presets
-from raptor_tpu_torch.env.io import _FIELDS, load_params_json
+from raptor_tpu_torch.env.io import _FIELDS, load_params_numpy
 from raptor_tpu_torch.env.types import tree_map
 from raptor_tpu_torch.rl import evaluation
 from raptor_tpu_torch.utils.extrack import Run
 
 
-def _load_h5_group(paths):
-    """Per-teacher `.h5` actors and their `_dynamics.json`, stacked."""
+def _dynamics_json(checkpoint_path: str) -> str:
+    return checkpoint_path[: checkpoint_path.rindex(".")] + "_dynamics.json"
+
+
+def _load_actor_group(paths):
+    """Per-teacher actor files (`.h5` or `.npz`) and their `_dynamics.json`,
+    stacked."""
     actors = [ckpt_h5.load_mlp_actor(p) for p in paths]
-    frames = [load_params_json(p.replace(".h5", "_dynamics.json")) for p in paths]
+    frames = [load_params_numpy(_dynamics_json(p)) for p in paths]
     layers = [
         {k: np.stack([a["layers"][i][k] for a in actors]) for k in ("w", "b")}
         for i in range(len(actors[0]["layers"]))
     ]
-    airframes = {f: np.concatenate([getattr(fr, f).numpy() for fr in frames]) for f in _FIELDS}
+    airframes = {f: np.stack([fr[f] for fr in frames]) for f in _FIELDS}
     return {"layers": layers}, airframes
 
 
@@ -57,9 +62,10 @@ def load_teachers(manifest_path: str, device="cuda"):
     `DynamicsParams` [K]), from any of:
 
     - a `.npz` teacher pack (apps.pack_teachers),
-    - a `checkpoints.txt` manifest of per-teacher h5 paths,
-    - a manifest whose lines are `.npz` packs, or a mix of packs and h5
-      paths: the populations concatenate along the K axis in line order.
+    - a `checkpoints.txt` manifest of per-teacher actor files (`.h5`, or
+      the `.npz` form `apps.pre_training` writes where h5py is missing),
+    - a manifest whose lines are `.npz` packs, or a mix of packs and actor
+      files: the populations concatenate along the K axis in line order.
     """
     device = resolve_device(device)
     if manifest_path.endswith(".npz"):
@@ -75,15 +81,15 @@ def load_teachers(manifest_path: str, device="cuda"):
     # teacher order is the manifest's line order
     groups, h5_run = [], []
     for p in paths:
-        if p.endswith(".npz"):
+        if p.endswith(".npz") and not ckpt_h5.is_mlp_actor_npz(p):
             if h5_run:
-                groups.append(_load_h5_group(h5_run))
+                groups.append(_load_actor_group(h5_run))
                 h5_run = []
             groups.append(load_teacher_pack(p))
         else:
             h5_run.append(p)
     if h5_run:
-        groups.append(_load_h5_group(h5_run))
+        groups.append(_load_actor_group(h5_run))
     n_layers = len(groups[0][0]["layers"])
     actors = {
         "layers": [

@@ -16,6 +16,12 @@ only numpy to read; h5py is imported only where an `.h5` file is touched.
 Loaders return numpy arrays; `raptor_tpu_torch.checkpoint.from_numpy` puts
 them on a device.
 
+A feedforward (teacher) actor has its own two forms (`save_mlp_actor`,
+`load_mlp_actor`): HDF5 groups actor/layers/{i}/{weights,biases}/parameters
+with the attribute type = "mlp", weights stored [in, out]; and an `.npz` with
+the arrays "actor/layers/{i}/weights", "actor/layers/{i}/biases", "actor/type"
+and, where given, "actor/meta" (JSON).
+
     python -m raptor_tpu_torch.checkpoint.h5 student.h5 student.npz
 """
 
@@ -86,15 +92,14 @@ def load_example_io(path: str) -> Tuple[np.ndarray, np.ndarray]:
         )
 
 
+def _numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
 def _numpy_params(params) -> Dict[str, Dict[str, np.ndarray]]:
-    return {
-        layer: {
-            k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
-            .astype(np.float32)
-            for k, v in tensors.items()
-        }
-        for layer, tensors in params.items()
-    }
+    return {layer: {k: _numpy(v) for k, v in tensors.items()} for layer, tensors in params.items()}
 
 
 def _apply_sequence_cpu(p: Dict[str, Dict[str, np.ndarray]], obs: np.ndarray) -> np.ndarray:
@@ -163,9 +168,55 @@ def save_actor(
         ex.create_dataset("output", data=example_output)
 
 
+def save_mlp_actor(path: str, actor_params, meta: Optional[dict] = None,
+                   npz: Optional[bool] = None) -> None:
+    """Write a feedforward (teacher) actor {"layers": [{"w": [in, out],
+    "b": [out]}, ...]}: the `.npz` form when `npz` is true (default: when the
+    path ends in `.npz`), else the HDF5 schema."""
+    layers = [(_numpy(layer["w"]), _numpy(layer["b"])) for layer in actor_params["layers"]]
+    if _is_npz(path) if npz is None else npz:
+        arrays = {"actor/type": np.array("mlp")}
+        for i, (w, b) in enumerate(layers):
+            arrays[f"actor/layers/{i}/weights"] = w
+            arrays[f"actor/layers/{i}/biases"] = b
+        if meta is not None:
+            arrays["actor/meta"] = np.array(json.dumps(meta))
+        with open(path, "wb") as fh:
+            np.savez(fh, **arrays)
+        return
+
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        actor = f.create_group("actor")
+        actor.attrs["type"] = "mlp"
+        if meta is not None:
+            actor.attrs["meta"] = json.dumps(meta)
+        groups = actor.create_group("layers")
+        for i, (w, b) in enumerate(layers):
+            g = groups.create_group(str(i))
+            g.create_group("weights").create_dataset("parameters", data=w)
+            g.create_group("biases").create_dataset("parameters", data=b)
+
+
+def is_mlp_actor_npz(path: str) -> bool:
+    """Whether an `.npz` file is a feedforward actor checkpoint (and not, for
+    example, a teacher pack)."""
+    with np.load(path) as z:
+        return "actor/type" in z.files
+
+
 def load_mlp_actor(path: str) -> Dict[str, list]:
-    """A feedforward (teacher) actor from an HDF5 checkpoint:
+    """A feedforward (teacher) actor from either form:
     {"layers": [{"w": [in, out], "b": [out]}, ...]} as f32 numpy arrays."""
+    if _is_npz(path):
+        with np.load(path) as z:
+            n_layers = sum(1 for k in z.files if k.endswith("/weights"))
+            return {"layers": [
+                {"w": np.asarray(z[f"actor/layers/{i}/weights"], np.float32),
+                 "b": np.asarray(z[f"actor/layers/{i}/biases"], np.float32)}
+                for i in range(n_layers)
+            ]}
     import h5py
 
     with h5py.File(path, "r") as f:

@@ -1,8 +1,10 @@
 // The kernels' per-env code (quad_step.cuh) looped over envs on the CPU, with
 // the same C interface as rollout.cu, eval.cu and collect.cu minus the stream,
-// plus the collect kernel's PRNG and sampler on arrays of counters. Built with
+// plus the collect kernel's PRNG and sampler on arrays of counters and the FMA
+// peak probe's chain (fma_chain.cuh) on an array. Built with
 // g++ so the CPU tests can hold the arithmetic the kernels run to the JAX
 // package and to the plain PyTorch versions.
+#include "fma_chain.cuh"
 #include "quad_step.cuh"
 
 extern "C" int raptor_rollout_host(const float* params, const float* state,
@@ -86,5 +88,20 @@ extern "C" int raptor_sample_state_host(const float* params,
     raptor::sample_state(raptor::ParamColumn{params + i, n}, counters[i], init, s);
     for (int j = 0; j < raptor::N_STATE; ++j) state_out[j * n + i] = s[j];
   }
+  return 0;
+}
+
+// out[i] = the FMA peak probe's chain on x[i] (fma_peak.cu's per-element
+// function, one chain at a time)
+extern "C" int raptor_fma_peak_host(const float* x, float* out, long n,
+                                    int depth, int nfma, float a, float b) {
+#define RAPTOR_LOOP(NFMA)                               \
+  for (long i = 0; i < n; ++i) {                        \
+    float y[1] = {x[i]};                                \
+    raptor::fma_chains<NFMA, 1>(y, depth, a, b);        \
+    out[i] = y[0];                                      \
+  }
+  RAPTOR_FMA_DISPATCH(nfma, RAPTOR_LOOP)
+#undef RAPTOR_LOOP
   return 0;
 }

@@ -39,7 +39,7 @@ def params_to_dict(params: DynamicsParams) -> dict:
     return {f: getattr(params, f)[0].detach().cpu().numpy().tolist() for f in _FIELDS}
 
 
-def params_from_dict(d: dict, device="cpu") -> DynamicsParams:
+def params_from_dict(d: dict, device) -> DynamicsParams:
     from raptor_tpu_torch.checkpoint import dynamics_params_from_numpy
 
     return dynamics_params_from_numpy({f: np.asarray(d[f], np.float32) for f in _FIELDS}, device)
@@ -50,6 +50,12 @@ def save_params_json(path: str, params: DynamicsParams) -> None:
         json.dump(params_to_dict(params), f, indent=2)
 
 
-def load_params_json(path: str, device="cpu") -> DynamicsParams:
+def load_params_numpy(path: str) -> dict:
+    """One airframe file as a dict of f32 numpy arrays without the batch axis."""
     with open(path) as f:
-        return params_from_dict(json.load(f), device)
+        d = json.load(f)
+    return {f: np.asarray(d[f], np.float32) for f in _FIELDS}
+
+
+def load_params_json(path: str, device) -> DynamicsParams:
+    return params_from_dict(load_params_numpy(path), device)

@@ -27,6 +27,8 @@ def x_config_rotor_positions(arm_length: float) -> np.ndarray:
 def make_params(
     mass: float,
     arm_length: float,
+    *,
+    device,
     inertia_diag=None,
     thrust_to_weight: float = 2.5,
     torque_constant: float = 0.016,
@@ -34,9 +36,8 @@ def make_params(
     rpm_min: float = 0.1,
     disturbance_force_std: float = 0.0,
     disturbance_torque_std: float = 0.0,
-    device="cpu",
 ) -> DynamicsParams:
-    """One airframe from physical numbers, as a batch of one.
+    """One airframe from physical numbers, as a batch of one on `device`.
 
     Thrust curve T(u) = c2 u^2 with c2 = thrust_to_weight * m * g / 4."""
     if inertia_diag is None:
@@ -65,7 +66,7 @@ def make_params(
     )
 
 
-def crazyflie(device="cpu") -> DynamicsParams:
+def crazyflie(device) -> DynamicsParams:
     """Bitcraze Crazyflie 2.x (27 g)."""
     return make_params(
         mass=0.027,
@@ -78,7 +79,7 @@ def crazyflie(device="cpu") -> DynamicsParams:
     )
 
 
-def x500(device="cpu") -> DynamicsParams:
+def x500(device) -> DynamicsParams:
     """X500-class development quad (~2 kg)."""
     return make_params(
         mass=2.0,

@@ -1,7 +1,7 @@
 """Build and load the port's native code from `raptor_tpu_torch/csrc/`.
 
-- `cuda_library()`: the CUDA kernels (`rollout.cu`, `eval.cu`, `collect.cu`),
-  each source compiled by its own `nvcc` process (all started together) for
+- `cuda_library()`: the CUDA kernels (`rollout.cu`, `eval.cu`, `collect.cu`,
+  `fma_peak.cu`), each source compiled by its own `nvcc` process (all started together) for
   sm_90a, then linked into one shared library with a plain C interface, loaded
   with ctypes.
 - `host_library()`: `host_shim.cpp`, the kernels' per-env code looped on the
@@ -25,8 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raptor_tpu_torch"
-HEADER = "quad_step.cuh"
-CUDA_SOURCES = ("rollout.cu", "eval.cu", "collect.cu")
+HEADERS = ("quad_step.cuh", "fma_chain.cuh")
+CUDA_SOURCES = ("rollout.cu", "eval.cu", "collect.cu", "fma_peak.cu")
 HOST_SOURCE = "host_shim.cpp"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+_L = ctypes.c_long
 # pointers..., n, n_steps, dt, pos_bound, linvel_bound, angvel_bound
 ROLLOUT_ARGS = [_P] * 5 + [_I, _I] + [_F] * 4
 # weights, params, state, out, stats, n, n_steps, dt, bounds(3), reward(7)
@@ -44,6 +45,8 @@ INIT_ARGS = [_F] * 5 + [_I]
 # weights, params, state, out, n, n_steps, dt, episode_length, bounds(3),
 # init(6), seed, env_offset
 COLLECT_ARGS = [_P] * 4 + [_I, _I] + [_F] * 5 + INIT_ARGS + [_U, _U]
+# x, out, n, depth, nfma, a, b
+FMA_PEAK_ARGS = [_P, _P, _L, _I, _I, _F, _F]
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -51,7 +54,7 @@ _loaded: dict = {}
 
 def _tag(sources, flags) -> str:
     h = hashlib.sha256()
-    for name in (HEADER, *sources):
+    for name in (*HEADERS, *sources):
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
@@ -121,14 +124,16 @@ def _load(kind: str, sources, flags, build, signatures) -> ctypes.CDLL:
 
 def cuda_library() -> ctypes.CDLL:
     """The CUDA kernels, built on first call. Entry points `raptor_rollout`,
-    `raptor_eval` and `raptor_collect` take a stream last and return
-    cudaGetLastError()."""
+    `raptor_eval`, `raptor_collect` and `raptor_fma_peak` (which also fills an
+    int[3] with its chains a thread, block and grid) take a stream last and
+    return cudaGetLastError()."""
     return _load(
         "raptor_cuda", CUDA_SOURCES, NVCC_FLAGS, _build_cuda,
         {
             "raptor_rollout": ROLLOUT_ARGS + [_P],
             "raptor_eval": EVAL_ARGS + [_P],
             "raptor_collect": COLLECT_ARGS + [_P],
+            "raptor_fma_peak": FMA_PEAK_ARGS + [_P, _P],
         },
     )
 
@@ -139,10 +144,31 @@ def cuda_build_log() -> str:
     return _loaded["raptor_cuda"][1].with_suffix(".log").read_text()
 
 
+def cuda_sass_counts(kernel: str):
+    """(FFMA instructions, all instructions) in the SASS of the loaded CUDA
+    library's first function whose mangled name contains `kernel`, from
+    `cuobjdump -sass`; None where the toolkit has no cuobjdump."""
+    cuda_library()
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return None
+    n_ffma = n_all = 0
+    inside = False
+    for line in _run([cuobjdump, "-sass", str(_loaded["raptor_cuda"][1])]).splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = kernel in line
+        elif inside and line.lstrip().startswith("/*") and ";" in line:
+            n_all += 1
+            n_ffma += " FFMA " in line
+    return n_ffma, n_all
+
+
 def host_library() -> ctypes.CDLL:
     """The kernels' per-env code built for the CPU (`raptor_rollout_host`,
-    `raptor_eval_host`, `raptor_collect_host`: the CUDA entry points without
-    the stream; `raptor_hash_host` and `raptor_sample_state_host`: the collect
+    `raptor_eval_host`, `raptor_collect_host`, `raptor_fma_peak_host`: the CUDA
+    entry points without the stream (and the geometry); `raptor_hash_host` and `raptor_sample_state_host`: the collect
     kernel's PRNG and sampler on arrays of counters)."""
     return _load(
         "raptor_host", (HOST_SOURCE,), GXX_FLAGS, _build_host,
@@ -150,6 +176,7 @@ def host_library() -> ctypes.CDLL:
             "raptor_rollout_host": ROLLOUT_ARGS,
             "raptor_eval_host": EVAL_ARGS,
             "raptor_collect_host": COLLECT_ARGS,
+            "raptor_fma_peak_host": FMA_PEAK_ARGS,
             "raptor_hash_host": [_P, _P, _P, _I, _U],
             "raptor_sample_state_host": [_P, _P, _P, _I] + INIT_ARGS,
         },

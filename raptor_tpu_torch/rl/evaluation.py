@@ -27,7 +27,7 @@ class EvalStats(NamedTuple):
     share_terminated: torch.Tensor
 
 
-def evaluate_from(
+def run_episodes(
     env: L2F,
     params: DynamicsParams,  # [M] eval airframes
     state: State,  # [M] initial states
@@ -35,10 +35,10 @@ def evaluate_from(
     policy_carry,
     generator: torch.Generator,
     episode_length: Optional[int] = None,
-) -> EvalStats:
-    """One evaluation pass from given initial states. Each env runs to
-    termination or the cap; a terminated env keeps the state it died in and
-    earns nothing more."""
+):
+    """One evaluation pass from given initial states: per-episode (return,
+    length, alive), each [M]. Each env runs to termination or the cap; a
+    terminated env keeps the state it died in and earns nothing more."""
     t_max = episode_length or env.EPISODE_LENGTH
     m = params.mass.shape[0]
     zero_action = state.position.new_zeros((m, 4))
@@ -60,18 +60,33 @@ def evaluate_from(
         alive = alive & ~terminated
         state = next_state
         obs = env.observe(params, next_state, action)
-    return summarize(ret, length, alive)
+    return ret, length, alive
+
+
+def evaluate_from(
+    env: L2F,
+    params: DynamicsParams,
+    state: State,
+    policy_step: Callable,
+    policy_carry,
+    generator: torch.Generator,
+    episode_length: Optional[int] = None,
+) -> EvalStats:
+    """`run_episodes` from given initial states, summarized."""
+    return summarize(*run_episodes(
+        env, params, state, policy_step, policy_carry, generator, episode_length))
 
 
 def summarize(ret: torch.Tensor, length: torch.Tensor, alive: torch.Tensor) -> EvalStats:
-    """The 5 stats of per-episode return, length and alive flag [M]."""
+    """The 5 stats of per-episode return, length and alive flag [M], over the
+    last axis: [K, M] inputs give one value per row."""
     length_f = length.float()
     return EvalStats(
-        return_mean=torch.mean(ret),
-        return_std=torch.std(ret, correction=0),
-        episode_length_mean=torch.mean(length_f),
-        episode_length_std=torch.std(length_f, correction=0),
-        share_terminated=torch.mean(1.0 - alive.float()),
+        return_mean=torch.mean(ret, -1),
+        return_std=torch.std(ret, -1, correction=0),
+        episode_length_mean=torch.mean(length_f, -1),
+        episode_length_std=torch.std(length_f, -1, correction=0),
+        share_terminated=torch.mean(1.0 - alive.float(), -1),
     )
 
 

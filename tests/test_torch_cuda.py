@@ -222,3 +222,73 @@ def test_wrappers_reject_mixed_devices(inputs):
         ops_eval.eval_soa(weights.cpu(), ps, ss, 1)
     with pytest.raises(ValueError):
         ops_collect.collect_soa(weights, ps.cpu(), ss, 1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 2048, 2048 + 5, 8 * 256 * 132 + 96, 100_003])
+def test_fma_peak_kernel_matches_plain(card, n):
+    """Sizes that are and are not multiples of the warp (32), the block (256)
+    and the elements a block covers (2,048). rtol 1e-5: kernel and plain
+    version both round once a step (see ops/fma_peak.py)."""
+    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
+
+    g = torch.Generator(device=card).manual_seed(n)
+    x = 0.5 + torch.rand(n, device=card, generator=g)
+    before = ops_fma_peak.launches
+    got = ops_fma_peak.fma_peak(x, 16, nfma=32)
+    want = ops_fma_peak.fma_peak_plain(x, 16, nfma=32)
+    torch.cuda.synchronize()
+    assert ops_fma_peak.launches == before + 1
+    assert ops_fma_peak.last_geometry["elements"] == n
+    assert ops_fma_peak.last_geometry["grid"] == -(-n // 2048)
+    torch.testing.assert_close(got, want, atol=0, rtol=1e-5)
+    ones = ops_fma_peak.fma_peak(torch.ones(n, device=card), 64)
+    assert bool((ones == ones[0]).all())
+    # 9 ulp a step, exactly (8.84 in exact arithmetic: 3.7e-5 off the closed form)
+    assert float(ones[0]) == 1.0 + 64 * 32 * 9 * 2.0**-23
+    assert abs(float(ones[0]) / ops_fma_peak.closed_form(64 * 32) - 1.0) < 1e-4
+
+
+@pytest.mark.cuda
+def test_fma_peak_kernel_other_nfma_and_refusals(card):
+    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
+
+    x = 0.5 + torch.rand(4099, device=card)
+    for nfma in (1, 8, 64):
+        torch.testing.assert_close(
+            ops_fma_peak.fma_peak(x, 8, nfma=nfma), ops_fma_peak.fma_peak_plain(x, 8, nfma=nfma),
+            atol=0, rtol=1e-5)
+    with pytest.raises(ValueError):
+        ops_fma_peak.fma_peak(x, 8, nfma=3)
+    with pytest.raises(ValueError):
+        ops_fma_peak.fma_peak(x.double(), 8)
+
+
+@pytest.mark.cuda
+def test_population_super_step_on_the_card(card):
+    """One warm-up, one demonstrator collect and one multi-step of 4 teachers
+    x 8 envs on the card: finite metrics, counters as on the CPU."""
+    from raptor_tpu_torch.distill import population
+    from raptor_tpu_torch.rl import sac
+
+    g = torch.Generator(device=card).manual_seed(0)
+    env = L2F(EnvConfig())
+    pop_cfg = population.PopulationConfig(
+        n_teachers=4, envs_per_teacher=8, rollout_length=4, gradient_steps=3, batch_size=16,
+        replay_capacity=16, sample_rows=True)
+    sac_cfg = sac.SACConfig(stack_critics=True)
+    airframes = population.sample_teacher_airframes(g, 4)
+    states, env_params, run_cfg = population.population_init(g, env, airframes, pop_cfg, sac_cfg)
+    states = population.make_population_warmup(env, run_cfg)(states, env_params)
+    states = population.make_population_demo_collect(env, run_cfg, True)(states, env_params)
+    states, metrics = population.make_population_multi_step(
+        env, run_cfg, sac_cfg, 2)(states, env_params)
+    torch.cuda.synchronize()
+    assert states.buffer.obs.device.type == "cuda" and states.buffer.obs.shape == (4, 16, 8, 31)
+    assert (states.buffer.ptr, states.buffer.size, states.total_env_steps) == (0, 16, 4 * 4 * 8)
+    assert states.sac.step == 6
+    for name in metrics._fields:
+        m = getattr(metrics, name)
+        assert m.shape == (4,) and bool(torch.isfinite(m).all()), name
+    stats = population.make_population_eval(env, 4, 20)(states.sac, airframes, g)
+    assert stats.return_mean.shape == (4,) and bool(torch.isfinite(stats.return_mean).all())

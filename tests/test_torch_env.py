@@ -121,7 +121,7 @@ def test_random_quaternion_is_unit_and_bounded():
 @pytest.mark.parametrize("name", ["crazyflie", "x500"])
 def test_presets_match_jax(name):
     jp = to_np(getattr(jpresets, name)())
-    tp = getattr(tpresets, name)()
+    tp = getattr(tpresets, name)("cpu")
     for f in dataclasses.fields(tp):
         np.testing.assert_array_equal(getattr(tp, f.name)[0].numpy(), getattr(jp, f.name), f.name)
     np.testing.assert_array_equal(
@@ -189,7 +189,7 @@ def test_golden_trajectory_reproduced():
     jenv = JL2F(jtypes.EnvConfig())
     es, _ = jenv.reset(jax.random.key(int(data["init_key"])), jpresets.crazyflie())
     state = state_from_numpy(to_np(es.dynamics), "cpu")
-    params = tpresets.crazyflie()
+    params = tpresets.crazyflie("cpu")
     env = TL2F(ttypes.EnvConfig())
     rows = []
     for a in data["actions"]:

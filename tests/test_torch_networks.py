@@ -121,7 +121,7 @@ def test_standardize_matches_jax():
     np.testing.assert_allclose(
         networks.standardize_apply(st, torch.from_numpy(x)).numpy(),
         np.asarray(jnetworks.standardize_apply(sj, jnp.asarray(x))), atol=1e-5, rtol=0)
-    ident = networks.standardize_init(22)
+    ident = networks.standardize_init(22, "cpu")
     assert torch.equal(networks.standardize_apply(ident, torch.from_numpy(x)),
                        torch.from_numpy(x))
     dense = mlp_np(rng, [22, 16])["layers"][0]
@@ -280,7 +280,7 @@ def test_params_json_roundtrip_matches_jax(tmp_path):
     one = jax.tree.map(lambda x: x[0], jframes)
     jpath, tpath = str(tmp_path / "j.json"), str(tmp_path / "t.json")
     jio.save_params_json(jpath, one)
-    loaded = io.load_params_json(jpath)
+    loaded = io.load_params_json(jpath, "cpu")
     assert loaded.mass.shape == (1,)
     for f in io._FIELDS:
         np.testing.assert_array_equal(getattr(loaded, f)[0].numpy(), np.asarray(getattr(one, f)))

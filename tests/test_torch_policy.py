@@ -11,10 +11,12 @@ worse than the JAX package is; checkpoints written on the CPU replay at 1e-5.
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import __graft_entry__ as jax_entry
 from raptor_tpu.checkpoint import h5 as jh5
 from raptor_tpu.ops import pallas_collect
 from raptor_tpu.policy import network as jnet
@@ -22,6 +24,7 @@ from raptor_tpu.policy.raptor import Raptor as JRaptor
 from raptor_tpu_torch.checkpoint import from_numpy, h5
 from raptor_tpu_torch.ops import eval as ops_eval
 from raptor_tpu_torch.policy import network, raptor
+from raptor_tpu_torch.policy.entry import entry
 from raptor_tpu_torch.policy.raptor import Raptor
 
 H5 = "artifacts/student_rateFlagCurMix.h5"
@@ -159,3 +162,22 @@ def test_shipped_checkpoint_raises_when_reference_absent(monkeypatch, tmp_path):
     with pytest.raises(FileNotFoundError):
         raptor.shipped_checkpoint_path()
     assert not os.path.exists(tmp_path / "cache")
+
+
+def test_entry_twin_matches_jax_entry():
+    jfn, (jparams, jh, jobs) = jax_entry.entry()
+    fn, (params, h, obs) = entry(device="cpu")
+    assert obs.shape == tuple(jobs.shape) == (256, 22) and h.shape == tuple(jh.shape)
+    assert {k: {n: tuple(t.shape) for n, t in v.items()} for k, v in params.items()} == \
+        {k: {n: tuple(t.shape) for n, t in v.items()} for k, v in jparams.items()}
+    # the JAX example arguments (and a non-trivial observation) through both
+    rng = np.random.default_rng(0)
+    p_np = jax.tree.map(np.asarray, jparams)
+    for o in (np.asarray(jobs), rng.standard_normal((256, 22)).astype(np.float32)):
+        ref = np.asarray(jfn(jparams, jh, jnp.asarray(o)))
+        got = fn(from_numpy(p_np, "cpu"), torch.from_numpy(np.array(jh)), torch.from_numpy(np.array(o)))
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-6, rtol=0)
+    assert fn(params, h, obs).shape == (256, 4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()  # the default device is the card

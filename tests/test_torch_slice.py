@@ -6,6 +6,8 @@ distillation through its two CLIs.
 - the fused path (`ops.eval`, plain version here) against the eager loop, and
   the CLI's `--fused` and eager modes against each other;
 - the distillation CLI and the collect benchmark CLI at a tiny size;
+- the `eval_parity` sweep against the JAX package's `evaluate_at_angle` on
+  handed-across airframes and states;
 - entry points refuse to run without a card unless asked for the CPU;
 - the port and `chip_smoke.py` import neither JAX nor `raptor_tpu`;
 - `chip_smoke.py` exits non-zero with no result where there is no card.
@@ -24,10 +26,15 @@ import torch
 
 from raptor_tpu.env import EnvConfig as JEnvConfig
 from raptor_tpu.env import L2F as JL2F
+from raptor_tpu.apps import eval_parity as j_eval_parity
+from raptor_tpu.env import presets as jpresets
+from raptor_tpu.env.types import InitConfig as JInitConfig
 from raptor_tpu.env.types import eval_parity_init as j_eval_parity_init
 from raptor_tpu.env import sample_population as jsample
 from raptor_tpu.rl import evaluation as jevaluation
+from raptor_tpu_torch import bench as bench_module
 from raptor_tpu_torch.apps import bench_collect as bench_cli
+from raptor_tpu_torch.apps import eval_parity, pre_training, roofline, sample_dynamics
 from raptor_tpu_torch.apps import evaluate as cli
 from raptor_tpu_torch.apps import post_training as distill_cli
 from raptor_tpu_torch.checkpoint import dynamics_params_from_numpy, from_numpy, h5
@@ -37,6 +44,7 @@ from raptor_tpu_torch.env.types import State
 from raptor_tpu_torch.ops import collect as ops_collect
 from raptor_tpu_torch.ops import eval as ops_eval
 from raptor_tpu_torch.ops import rollout as ops_rollout
+from raptor_tpu_torch.policy.entry import entry
 from raptor_tpu_torch.policy.raptor import Raptor
 from raptor_tpu_torch.rl import evaluation
 
@@ -176,22 +184,89 @@ def test_bench_collect_cli_runs_on_cpu(tmp_path):
         bench_cli.main(["--device", "cpu"])  # neither a manifest nor --synthetic
 
 
+@pytest.mark.parametrize("airframe,angle", [("random", 0.4), ("random", 1.0), ("crazyflie", 1.0)])
+def test_eval_parity_matches_jax_evaluate_at_angle(airframe, angle):
+    """The committed student at two angles, 2 airframes x 2 envs, the full
+    500 steps, from the airframes and initial states the JAX function draws
+    from its key."""
+    n_air, per = 2, 2
+    m, key = n_air * per, jax.random.key(11)
+    p_np = h5.load_actor(H5)
+    ref = j_eval_parity.evaluate_at_angle(p_np, angle, key, n_air, per, airframe)
+    if airframe == "random":
+        frames = jsample(jax.random.fold_in(key, 7), n_air)
+        stacked = jax.tree.map(lambda x: jax.numpy.repeat(x, per, axis=0), frames)
+    else:
+        one = jpresets.crazyflie()
+        stacked = jax.tree.map(lambda x: jax.numpy.broadcast_to(x, (m,) + x.shape), one)
+    jenv = JL2F(JEnvConfig(init=JInitConfig(max_angle=angle)))
+    es, _ = jax.vmap(jenv.reset)(jax.random.split(key, m), stacked)
+    policy = from_numpy(p_np, "cpu")
+    for fused in (False, True):
+        got = eval_parity.evaluate_at_angle(
+            policy, angle, torch.Generator().manual_seed(0), n_air, per, airframe, fused=fused,
+            stacked=dynamics_params_from_numpy(to_np(stacked), "cpu"),
+            state=state_from_numpy(to_np(es.dynamics), "cpu"))
+        for name in STATS:
+            np.testing.assert_allclose(
+                float(getattr(got, name)), float(getattr(ref, name)), rtol=1e-3, atol=1e-3,
+                err_msg=f"{name} fused={fused}")
+    assert float(got.episode_length_mean) > 100.0
+
+
+def test_eval_parity_cli_scores_a_student_without_the_reference(tmp_path, monkeypatch, capsys):
+    monkeypatch.delenv("RAPTOR_REFERENCE_DIR", raising=False)
+    out = str(tmp_path / "sweep.json")
+    have_shipped = True
+    try:
+        eval_parity.shipped_checkpoint_path()
+    except FileNotFoundError:
+        have_shipped = False
+    report = eval_parity.main(["--checkpoint", NPZ, "--angles", "0.3,3.0", "--n-airframes", "2",
+                               "--envs-per-airframe", "2", "--fused", "--device", "cpu",
+                               "--out", out])
+    assert [row["max_angle"] for row in report["sweep"]] == [0.3, 3.0]
+    for row in report["sweep"]:
+        assert ("aggregate" in row) == have_shipped  # shipped rows only with the reference
+        for who in ("student_crazyflie", "student_aggregate"):
+            assert set(row[who]) == {"episode_length", "share_terminated", "return"}
+            assert all(np.isfinite(v) for v in row[who].values())
+    gentle, severe = report["sweep"]
+    assert gentle["student_aggregate"]["episode_length"] == 500.0
+    assert severe["student_aggregate"]["return"] < gentle["student_aggregate"]["return"]
+    assert report["fused"] and report["device"] == "cpu"
+    with open(out) as f:
+        assert json.load(f) == report
+    assert "cf len" in capsys.readouterr().out
+    if not have_shipped:
+        assert report["eval_parity_max_angle"] is None
+        with pytest.raises(SystemExit):
+            eval_parity.main(["--device", "cpu"])  # nothing to score
+
+
 ENTRY_POINTS = {
+    "pre_training_cli": lambda: pre_training.main(["--population", "2", "--super-steps", "1"]),
+    "sample_dynamics_cli": lambda: sample_dynamics.main(["--n", "1", "--out", "unused_dir"]),
+    "eval_parity_cli": lambda: eval_parity.main(["--checkpoint", NPZ]),
+    "roofline_cli": lambda: roofline.main([]),
+    "measure_fma_peak": lambda: roofline.measure_fma_peak(),
+    "bench": lambda: bench_module.main([]),
+    "entry": lambda: entry(),
     "post_training_cli": lambda: distill_cli.main([PACK, "--rounds", "1"]),
     "bench_collect_cli": lambda: bench_cli.main(["--synthetic", "2", "--rollout-length", "4"]),
     "load_teachers": lambda: distill_cli.load_teachers(PACK),
     "make_fused_collect": lambda: ops_collect.make_fused_collect(
         from_numpy(h5.load_actor(NPZ), "cpu"), 5),
     "fused_collect": lambda: ops_collect.fused_collect(
-        from_numpy(h5.load_actor(NPZ), "cpu"), presets.crazyflie(), _hover_state(), 5, 0),
+        from_numpy(h5.load_actor(NPZ), "cpu"), presets.crazyflie("cpu"), _hover_state(), 5, 0),
     "Raptor": lambda: Raptor(NPZ),
     "cli": lambda: cli.main([NPZ, "--fused", "--n-airframes", "1", "--envs-per-airframe", "1"]),
     "fused_policy_eval": lambda: ops_eval.fused_policy_eval(
-        from_numpy(h5.load_actor(NPZ), "cpu"), presets.crazyflie(), _hover_state(), 5),
+        from_numpy(h5.load_actor(NPZ), "cpu"), presets.crazyflie("cpu"), _hover_state(), 5),
     "make_fused_policy_eval": lambda: ops_eval.make_fused_policy_eval(
         from_numpy(h5.load_actor(NPZ), "cpu"), 5),
     "fused_rollout": lambda: ops_rollout.fused_rollout(
-        presets.crazyflie(), _hover_state(), torch.zeros(1, 4), 5),
+        presets.crazyflie("cpu"), _hover_state(), torch.zeros(1, 4), 5),
 }
 
 
@@ -210,7 +285,7 @@ def test_entry_points_default_to_the_card(name):
 
 def test_entry_points_run_on_cpu_when_asked():
     _, alive, length = ops_rollout.fused_rollout(
-        presets.crazyflie(), _hover_state(), torch.zeros(1, 4), 5, device="cpu")
+        presets.crazyflie("cpu"), _hover_state(), torch.zeros(1, 4), 5, device="cpu")
     assert float(length[0]) == 5.0 and float(alive[0]) == 1.0
     a = Raptor(NPZ, device="cpu").evaluate_step(np.zeros(22, np.float32))
     assert a.shape == (4,) and np.all(np.isfinite(a))
@@ -237,7 +312,27 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("clean")
-    assert int(proc.stdout.split()[1]) >= 30  # every module of the package was imported
+    assert int(proc.stdout.split()[1]) >= 45  # every module of the package was imported
+
+
+def test_no_file_of_the_port_names_jax_in_an_import():
+    """Over every source file of the package and `chip_smoke.py`, new ones
+    included: no import statement of jax, flax, optax or the JAX package."""
+    import re
+
+    pattern = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|optax|raptor_tpu)(?:[.\s]|$)",
+                         re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "raptor_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 45
+    for path in files:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
+    for new in ("bench.py", "rl/sac.py", "rl/replay.py", "rl/runner.py", "ops/fma_peak.py",
+                "apps/roofline.py", "apps/pre_training.py", "apps/sample_dynamics.py",
+                "apps/eval_parity.py", "policy/entry.py"):
+        assert os.path.join(ROOT, "raptor_tpu_torch", new) in files
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
