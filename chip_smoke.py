@@ -9,18 +9,23 @@ with a non-zero exit code and no result line:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from `raptor_tpu_torch/csrc/` (nvcc, one process per
-   source, in parallel) and print ptxas' register and spill counts;
+   unit, all in parallel: the eval and collect sources once a hidden width)
+   and print each unit's seconds, ptxas' register and spill counts of every
+   kernel and the lanes a team of the rollout and eval kernels;
 3. rollout kernel vs its plain PyTorch version on N = 16,384 random airframes:
    20 steps with termination off (atol 2e-4, rtol 1e-3 on every state field),
    then 512 steps at hover with default bounds (finite, |q| = 1 +- 1e-5);
 4. eval kernel vs its plain version on N = 16,384, default init, 25 steps with
-   the committed student: alive and length agree on >= 99.9% of envs; on
+   the committed student, then with a student of hidden width 32 (random
+   weights from a seed): alive and length agree on >= 99.9% of envs; on
    those, return within atol 5e-3 / rtol 1e-3 and position within atol 1e-3;
 5. the serving main path with every launch count set to 0: the evaluate CLI
    with `--fused` (N = 2,048 x 8 = 16,384 envs, 500 steps, eval-parity init)
    must give share_terminated <= 0.05 and mean episode length >= 480, and the
    rollout entry point (N = 16,384, 512 steps at hover) must stay finite; each
-   kernel must have launched;
+   kernel must have launched. Then, counted from 0 again, the evaluate CLI
+   with `--fused` flies the width-32 student (2,048 envs) and must launch the
+   eval kernel and give five finite statistics;
 6. collect kernel vs its plain version with the committed student, on three
    populations: N = 16,384 random airframes, the 5,528 envs of the committed
    691-teacher union and the 944 envs of one distillation round (the widths
@@ -31,7 +36,7 @@ with a non-zero exit code and no result line:
    > 90% of envs, rows after a reset inside the init position range with zero
    previous action and an orthonormal R (atol 1e-4); (c) episode length 1, 10
    steps, every row a fresh draw of the in-kernel PRNG: observations within
-   atol 1e-5;
+   atol 1e-5. Checks (a) and (c) with the width-32 student on the 944 envs;
 7. the collect main path with launch counts from 0: the collect benchmark CLI
    on the committed 691-teacher union (691 x 8 = 5,528 envs, 500 steps) must
    report `parity_ok` and finite labels in [-1, 1] and launch the collect
@@ -74,7 +79,8 @@ with a non-zero exit code and no result line:
    events, median of 5 after a warm-up; 3 for the collect's plain version)
    and print one `{"kernels": [...]}` line with the launches of phases 5, 7
    and 9 (`launches`), those of the bench's processes in phase 10
-   (`bench_launches`), error, times and the bound;
+   (`bench_launches`), the lanes that fly one env (`threads_per_env`), error,
+   times and the bound;
 13. last line: {"ok": true, "device": {...}}.
 
 It imports neither JAX nor the JAX package. Without a CUDA device, or without
@@ -201,6 +207,7 @@ def main() -> int:
     from raptor_tpu_torch.ops import eval as ops_eval
     from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
     from raptor_tpu_torch.ops import rollout as ops_rollout
+    from raptor_tpu_torch.policy import network
     from raptor_tpu_torch.rl import networks, runner, sac
 
     # 1. the card
@@ -215,8 +222,14 @@ def main() -> int:
     build.cuda_library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for line in build.cuda_build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if line.startswith("unit "):
+            print(f"build: {line.strip()}")
+        elif "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
+    threads_per_env = {"rollout": ops_rollout.threads_per_env(),
+                       "eval": ops_eval.threads_per_env(),
+                       "collect": ops_collect.threads_per_env()}
+    print(f"lanes an env: {threads_per_env}")
     sass = build.cuda_sass_counts("fma_peak_kernelILi32E")
     if sass is None:
         print("sass: cuobjdump not found beside nvcc, the FFMA count of fma_peak_kernel<32> "
@@ -273,6 +286,32 @@ def main() -> int:
     )
     print(f"eval: kernel vs plain, 25 steps, max abs err (return, position) {eval_err:.3e}")
 
+    # a student of hidden width 32, biases and h0 drawn too (init_params
+    # leaves them at 0)
+    wide = network.init_params(torch.Generator(device=dev).manual_seed(32), hidden_dim=32)
+    g_wide = torch.Generator(device=dev).manual_seed(33)
+    for layer, name in (("dense_0", "biases"), ("gru_1", "biases_input"),
+                        ("gru_1", "biases_hidden"), ("gru_1", "initial_hidden_state"),
+                        ("dense_2", "biases")):
+        t = wide[layer][name]
+        t.add_(0.1 * torch.randn(t.shape, device=dev, generator=g_wide))
+    wide_weights = ops_eval.flatten_policy(wide)
+    k_out, k_stats = ops_eval.eval_soa(wide_weights, ps, ss, 25)
+    p_out, p_stats = ops_eval.eval_plain(wide, ps, ss, 25)
+    torch.cuda.synchronize()
+    agree = (k_stats[0] == p_stats[0]) & (k_stats[1] == p_stats[1])
+    n_agree = int(agree.sum())
+    if n_agree < 0.999 * N:
+        raise AssertionError(f"eval, hidden 32: alive/length agree on only {n_agree}/{N} envs")
+    eval_err_32 = max(
+        check_close("eval return, hidden 32", k_stats[2][agree], p_stats[2][agree], 5e-3, 1e-3),
+        check_close("eval position, hidden 32", k_out[0:3][:, agree], p_out[0:3][:, agree],
+                    1e-3, 0.0),
+    )
+    print(f"eval, hidden 32: kernel vs plain, 25 steps, alive and length agree on "
+          f"{n_agree}/{N} envs, max abs err (return, position) {eval_err_32:.3e}")
+    eval_err = max(eval_err, eval_err_32)
+
     # 5. the serving main path, with launch counts from 0
     ops_eval.launches = ops_rollout.launches = ops_collect.launches = 0
     t0 = time.perf_counter()
@@ -292,6 +331,19 @@ def main() -> int:
         raise AssertionError(f"main path eval below the bar: {stats}")
     if not all(bool(torch.isfinite(t).all()) for t in (r_state.to_soa(), r_alive, r_len)):
         raise AssertionError("main path rollout: non-finite output")
+    with tempfile.TemporaryDirectory() as wide_dir:
+        wide_ckpt = os.path.join(wide_dir, "student_h32.npz")
+        h5.save_actor(wide_ckpt, wide)
+        ops_eval.launches = 0
+        wide_stats = evaluate_cli.main([
+            wide_ckpt, "--fused", "--n-airframes", "256", "--envs-per-airframe", "8",
+            "--episode-length", str(T_EVAL), "--eval-parity-init", "--device", "cuda"])
+        print(f"main path, hidden 32: eval launches {ops_eval.launches}")
+        if ops_eval.launches < 1 or not all(math.isfinite(wide_stats[k]) for k in (
+                "return/mean", "return/std", "episode_length/mean", "episode_length/std",
+                "share_terminated")):
+            raise AssertionError(f"main path, hidden 32: {ops_eval.launches} launches, "
+                                 f"{wide_stats}")
 
     # 6. collect kernel vs plain, at a full-warp width and at the two widths
     # the main paths give it (5,528 and 944 envs, 24 and 16 past a multiple
@@ -307,9 +359,9 @@ def main() -> int:
     short = EnvConfig(episode_length=8)
     every = EnvConfig(episode_length=1)
 
-    def check_collect(pop):
-        """Checks (a)-(c) on the airframes `pop`; returns the largest
-        observation error of (a) and (c)."""
+    def check_collect(pop, policy=policy, weights=weights, with_b=True):
+        """Checks (a)-(c) ((a) and (c) without `with_b`) on the airframes
+        `pop`; returns the largest observation error of (a) and (c)."""
         n_pop = pop.mass.shape[0]
         pop_ps = pop.to_soa()
         pop_ss = L2F(EnvConfig()).sample_state(pop, g).to_soa()
@@ -328,32 +380,37 @@ def main() -> int:
             raise AssertionError("collect (a): reset masks differ or an env reset")
         err_a = check_close("collect (a) obs", k_obs, p_obs, 2e-4, 0.0)
 
-        (k_obs, k_reset), (p_obs, p_reset) = collect_both(short, 20, 11, pop_ss)
-        same = float((k_reset == p_reset).float().mean())
-        if same < 0.999 or float(k_reset[7].mean()) <= 0.9 or float(k_reset[15].mean()) <= 0.9:
-            raise AssertionError(
-                f"collect (b): reset masks agree on {same:.5f}, rows 7 and 15 reset on "
-                f"{float(k_reset[7].mean()):.3f} and {float(k_reset[15].mean()):.3f}")
-        after = torch.cat([k_obs[8][k_reset[7] == 1.0], k_obs[16][k_reset[15] == 1.0]])
-        rot = after[:, 3:12].reshape(-1, 3, 3)
-        check_close("collect (b) R R^T", rot @ rot.transpose(1, 2),
-                    torch.eye(3, device=dev).expand_as(rot), 1e-4, 0.0)
-        if (float(after[:, 0:3].abs().max()) > short.init.position_range + 1e-6
-                or float(after[:, 18:22].abs().max()) != 0.0):
-            raise AssertionError("collect (b): a row after a reset is not a fresh start")
+        b_note = "(b) not run"
+        if with_b:
+            (k_obs, k_reset), (p_obs, p_reset) = collect_both(short, 20, 11, pop_ss)
+            same = float((k_reset == p_reset).float().mean())
+            if same < 0.999 or float(k_reset[7].mean()) <= 0.9 or float(k_reset[15].mean()) <= 0.9:
+                raise AssertionError(
+                    f"collect (b): reset masks agree on {same:.5f}, rows 7 and 15 reset on "
+                    f"{float(k_reset[7].mean()):.3f} and {float(k_reset[15].mean()):.3f}")
+            after = torch.cat([k_obs[8][k_reset[7] == 1.0], k_obs[16][k_reset[15] == 1.0]])
+            rot = after[:, 3:12].reshape(-1, 3, 3)
+            check_close("collect (b) R R^T", rot @ rot.transpose(1, 2),
+                        torch.eye(3, device=dev).expand_as(rot), 1e-4, 0.0)
+            if (float(after[:, 0:3].abs().max()) > short.init.position_range + 1e-6
+                    or float(after[:, 18:22].abs().max()) != 0.0):
+                raise AssertionError("collect (b): a row after a reset is not a fresh start")
+            b_note = (f"(b) episode length 8, reset masks agree on {same} of entries, "
+                      f"{after.shape[0]} fresh rows inside the init box")
 
         (k_obs, k_reset), (p_obs, p_reset) = collect_both(every, 10, 5, pop_ss)
         if float(k_reset.min()) != 1.0 or float(p_reset.min()) != 1.0:
             raise AssertionError("collect (c): an env did not reset at every step")
         err_c = check_close("collect (c) obs", k_obs, p_obs, 1e-5, 0.0)
-        print(f"collect, {n_pop} envs: (a) 20 steps without resets, max abs err {err_a:.3e}; "
-              f"(b) episode length 8, reset masks agree on {same:.5f} of entries, "
-              f"{after.shape[0]} fresh rows inside the init box; (c) every row a fresh draw, "
-              f"max abs err {err_c:.3e}")
+        print(f"collect, {n_pop} envs, hidden {ops_eval.hidden_width(weights)}: (a) 20 steps "
+              f"without resets, max abs err {err_a:.3e}; {b_note}; (c) every row a fresh "
+              f"draw, max abs err {err_c:.3e}")
         return max(err_a, err_c)
 
     collect_err = max(
         check_collect(pop) for pop in (frames, flatten_envs(env_params), flatten_envs(sub_params)))
+    collect_err = max(collect_err, check_collect(
+        flatten_envs(sub_params), wide, wide_weights, with_b=False))
 
     # 7. the collect main path, with launch counts from 0
     ops_eval.launches = ops_rollout.launches = ops_collect.launches = 0
@@ -602,12 +659,12 @@ def main() -> int:
         ("eval", "raptor_tpu_torch/csrc/eval.cu", "raptor_tpu/ops/pallas_eval.py:130",
          lambda: ops_eval.eval_soa(weights, m_ps, m_ss, T_EVAL),
          lambda: ops_eval.eval_plain(policy, m_ps, m_ss, T_EVAL),
-         FLOPS_EVAL_STEP, (42 + 17 + 17 + 3) * 4 * N + ops_eval.N_WEIGHTS * 4, eval_err),
+         FLOPS_EVAL_STEP, (42 + 17 + 17 + 3) * 4 * N + weights.numel() * 4, eval_err),
         ("collect", "raptor_tpu_torch/csrc/collect.cu", "raptor_tpu/ops/pallas_collect.py:252",
          lambda: ops_collect.collect_soa(weights, c_ps, c_ss, T_COLLECT, 0),
          lambda: ops_collect.collect_plain(policy, c_ps, c_ss, T_COLLECT, 0),
          FLOPS_COLLECT_STEP,
-         (42 + 17) * 4 * n_c + ops_eval.N_WEIGHTS * 4 + 23 * 4 * n_c * T_COLLECT, collect_err),
+         (42 + 17) * 4 * n_c + weights.numel() * 4 + 23 * 4 * n_c * T_COLLECT, collect_err),
     )
     for name, source, replaces, kernel, plain, flops_step, n_bytes, err in specs:
         if name == "collect":
@@ -616,7 +673,7 @@ def main() -> int:
             n_resets = float(kernel()[1].sum())
             extra_ops = FLOPS_COLLECT_RESET * n_resets
         else:
-            # threads leave the loop when their env dies: count the env-steps run
+            # teams leave the loop when their env dies: count the env-steps run
             env_steps = float(kernel()[1][1].sum())
             extra_ops = 0.0
         ms = time_ms(torch, kernel)
@@ -626,14 +683,15 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "bench_launches": bench_launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "threads_per_env": threads_per_env[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
         })
         print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {max(t_ops, t_bytes):.4f} ms "
               f"({env_steps:.0f} env-steps, {sku} peaks)")
-    # at hover most rollout envs crash within ~50 steps and their threads leave
+    # at hover most rollout envs crash within ~50 steps and their teams leave
     # the loop; with termination off every env runs all 512 steps
     off_ms = time_ms(torch, lambda: ops_rollout.rollout_soa(ps, ss, hover, T_ROLLOUT, **off))
     off_bound = FLOPS_ROLLOUT_STEP * N * T_ROLLOUT / peak_flops * 1e3
@@ -657,6 +715,8 @@ def main() -> int:
         "name": "fma_peak", "route": "cuda", "source": "raptor_tpu_torch/csrc/fma_peak.cu",
         "replaces": "raptor_tpu/apps/roofline.py:105", "launches": launches["fma_peak"],
         "bench_launches": bench_launches["fma_peak"],
+        # no env: a thread runs the chains of several elements
+        "threads_per_env": 1 / peak["chains_per_thread"],
         "max_abs_err": fma_err, "ms": peak["t_lo_s"] * 1e3, "ms_hi": peak["t_hi_s"] * 1e3,
         "plain_ms": fma_plain_ms, "plain_depth": fma_depth, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,

@@ -1,0 +1,189 @@
+"""Time the eval (B2) and rollout (B1) kernels at several team sizes on one GPU:
+
+    python -m raptor_tpu_torch.apps.team_sweep [--sizes 1 2 4 8] [--policy-only] [--out sweep.json]
+
+The lanes that fly one env are compile-time constants of `csrc/team_step.cuh`
+(`EVAL_TEAM`, `ROLLOUT_TEAM`); the port has no runtime switch for them. For
+each size K this script copies the package into `build/team_sweep/K<K>/`
+beside the package, sets both constants to K in the copy's header (and builds
+the copy's eval and collect kernels at hidden width 16 only, to keep the
+build short), and runs one process there that builds the copy's kernels,
+holds them against their plain versions and times them at `chip_smoke.py`'s
+main-path shapes. K = 1 is the team code on one lane: no exchange, the
+parameters in registers, the work of one env in one thread.
+- rollout: N = 16,384 random airframes, 20 steps with termination off (state
+  within atol 2e-4 / rtol 1e-3, alive and length equal); timed at T = 512 with
+  termination off and at hover with the default bounds;
+- eval: the committed student, N = 2,048 airframes x 8 envs from the
+  eval-parity init, 25 steps against the plain version (alive and length equal
+  on >= 99.9 % of envs, return within 5e-3 / 1e-3, position within 1e-3);
+  timed at T = 500.
+`--policy-only` times the eval kernel with its physics taken out of the
+copy: the RK4 step is replaced by holding the state (and taking the rpm
+setpoints as the rotor state), so every env flies all T steps of the policy's
+weight loads, FMAs and gates, and nothing else but observation, reward and
+termination. Its eval is not held against the plain version; its rollout is.
+Times are CUDA-event medians of 5 runs after a warm-up. Each size prints one
+JSON line (with ptxas' registers and spills of its kernels); the last line
+holds them all, with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+PACKAGE = Path(__file__).resolve().parents[1]
+SWEEP_DIR = PACKAGE.parent / "build" / "team_sweep"
+N = 16_384
+T_ROLLOUT, T_EVAL = 512, 500
+RK4_IN_EVAL = "    team_rk4(tm, lp, s, u, sp, dt, s2, u2);\n#pragma unroll\n    for (int j = 0; j < N; ++j) {\n      ret[j]"
+HOLD_IN_EVAL = (
+    "#pragma unroll\n    for (int j = 0; j < N; ++j) {\n"
+    "      for (int c = 0; c < COMMON; ++c) s2[j][c] = s[j][c];\n"
+    "      for (int k = 0; k < R; ++k) u2[j][k] = sp[j][k];\n    }\n"
+    "#pragma unroll\n    for (int j = 0; j < N; ++j) {\n      ret[j]"
+)
+
+
+def _time_ms(torch, fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _ptxas(log: str) -> dict:
+    """kernel (mangled name) -> [registers, spill stores + loads] from nvcc's log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, [None, 0])[1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, [None, 0])[0] = int(m.group(1))
+    return {k: v for k, v in out.items() if "rollout" in k or "eval" in k}
+
+
+def worker(policy_only: bool = False) -> dict:
+    """Build, check and time this package's rollout and eval kernels (the eval
+    left unchecked where its physics was taken out)."""
+    import torch
+
+    from raptor_tpu_torch.checkpoint import from_numpy, h5
+    from raptor_tpu_torch.env import EnvConfig, L2F, dynamics, eval_parity_init
+    from raptor_tpu_torch.env.randomization import sample_population
+    from raptor_tpu_torch.env.types import tree_map
+    from raptor_tpu_torch.ops import build
+    from raptor_tpu_torch.ops import eval as ops_eval
+    from raptor_tpu_torch.ops import rollout as ops_rollout
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = sample_population(g, N)
+    es, _ = L2F(EnvConfig()).reset(frames, g)
+    ps, ss = frames.to_soa(), es.dynamics.to_soa()
+    off = dict(pos_bound=1e9, linvel_bound=1e9, angvel_bound=1e9)
+    action = torch.tensor([0.1, -0.05, 0.02, 0.0], device=dev)[:, None].expand(4, N).contiguous()
+    out, stats = ops_rollout.rollout_soa(ps, ss, action, 20, **off)
+    ref_out, ref_stats = ops_rollout.rollout_plain(ps, ss, action, 20, **off)
+    torch.testing.assert_close(stats, ref_stats, atol=0, rtol=0)
+    torch.testing.assert_close(out, ref_out, atol=2e-4, rtol=1e-3)
+    hover = dynamics.hover_action(frames)[None].expand(4, N).contiguous()
+
+    g_frames = torch.Generator(device=dev).manual_seed(0)
+    m_frames = tree_map(lambda x: x.repeat_interleave(8, 0), sample_population(g_frames, N // 8))
+    m_es, _ = L2F(EnvConfig(init=eval_parity_init())).reset(
+        m_frames, torch.Generator(device=dev).manual_seed(1))
+    m_ps, m_ss = m_frames.to_soa(), m_es.dynamics.to_soa()
+    policy = from_numpy(h5.load_actor(str(PACKAGE / "data" / "student_rateFlagCurMix.npz")), dev)
+    weights = ops_eval.flatten_policy(policy)
+    (out, stats), (ref_out, ref_stats) = (
+        ops_eval.eval_soa(weights, m_ps, m_ss, 25), ops_eval.eval_plain(policy, m_ps, m_ss, 25))
+    if not policy_only:
+        agree = (stats[0] == ref_stats[0]) & (stats[1] == ref_stats[1])
+        assert int(agree.sum()) >= 0.999 * N, int(agree.sum())
+        torch.testing.assert_close(stats[2][agree], ref_stats[2][agree], atol=5e-3, rtol=1e-3)
+        torch.testing.assert_close(out[0:3][:, agree], ref_out[0:3][:, agree], atol=1e-3, rtol=0)
+
+    return {
+        "policy_only": policy_only,
+        "rollout_lanes": ops_rollout.threads_per_env(),
+        "eval_lanes": ops_eval.threads_per_env(),
+        "rollout_off_ms": _time_ms(
+            torch, lambda: ops_rollout.rollout_soa(ps, ss, hover, T_ROLLOUT, **off)),
+        "rollout_hover_ms": _time_ms(
+            torch, lambda: ops_rollout.rollout_soa(ps, ss, hover, T_ROLLOUT)),
+        "eval_ms": _time_ms(torch, lambda: ops_eval.eval_soa(weights, m_ps, m_ss, T_EVAL)),
+        "eval_env_steps": float(ops_eval.eval_soa(weights, m_ps, m_ss, T_EVAL)[1][1].sum()),
+        "ptxas": _ptxas(build.cuda_build_log()),
+    }
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser()
+    p.add_argument("--sizes", type=int, nargs="+", default=[1, 2, 4, 8])
+    p.add_argument("--policy-only", action="store_true",
+                   help="take the physics out of the eval kernel in the copies")
+    p.add_argument("--out", default=None)
+    p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.worker:
+        res = worker(args.policy_only)
+        print(json.dumps(res))
+        return res
+
+    from raptor_tpu_torch.apps.roofline import card_name_and_power_limit
+
+    header = (PACKAGE / "csrc" / "team_step.cuh").read_text()
+    results = {}
+    for k in args.sizes:
+        root = SWEEP_DIR / f"K{k}"
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(PACKAGE, root / PACKAGE.name,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        text = re.sub(r"constexpr int (EVAL|ROLLOUT)_TEAM = \d+;",
+                      lambda m: f"constexpr int {m.group(1)}_TEAM = {k};", header)
+        if args.policy_only:
+            if text.count(RK4_IN_EVAL) != 1:
+                raise RuntimeError("the eval loop's RK4 step was not found in team_step.cuh")
+            text = text.replace(RK4_IN_EVAL, HOLD_IN_EVAL)
+        (root / PACKAGE.name / "csrc" / "team_step.cuh").write_text(text)
+        build_py = root / PACKAGE.name / "ops" / "build.py"
+        build_py.write_text(re.sub(r"HIDDEN_WIDTHS = \([\d, ]+\)", "HIDDEN_WIDTHS = (16,)",
+                                   build_py.read_text()))
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PACKAGE.name}.apps.team_sweep", "--worker",
+             *(["--policy-only"] if args.policy_only else [])],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, timeout=600)
+        if proc.returncode:
+            results[k] = {"error": proc.stderr[-2000:]}
+        else:
+            results[k] = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"lanes": k, **results[k]}), flush=True)
+    report = {"card": card_name_and_power_limit(), "sizes": results}
+    if args.out:
+        Path(args.out).write_text(json.dumps(report, indent=2) + "\n")
+    print(json.dumps(report))
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,16 @@
-// The kernels' per-env code (quad_step.cuh) looped over envs on the CPU, with
-// the same C interface as rollout.cu, eval.cu and collect.cu minus the stream,
-// plus the collect kernel's PRNG and sampler on arrays of counters and the FMA
-// peak probe's chain (fma_chain.cuh) on an array. Built with
-// g++ so the CPU tests can hold the arithmetic the kernels run to the JAX
-// package and to the plain PyTorch versions.
+// The kernels' per-env code (quad_step.cuh, team_step.cuh) looped over envs
+// on the CPU, with the same C interface as rollout.cu, eval.cu and collect.cu
+// minus the stream, plus the collect kernel's PRNG and sampler on arrays of
+// counters and the FMA peak probe's chain (fma_chain.cuh) on an array. The
+// eval and rollout kernels' teams run as HostTeam: the K lanes of a team in
+// one thread, phase by phase between the exchanges. Built with g++ so the CPU
+// tests can hold the arithmetic the kernels run to the JAX package and to the
+// plain PyTorch versions.
+#include <vector>
+
 #include "fma_chain.cuh"
 #include "quad_step.cuh"
+#include "team_step.cuh"
 
 extern "C" int raptor_rollout_host(const float* params, const float* state,
                                    const float* action, float* state_out,
@@ -13,17 +18,51 @@ extern "C" int raptor_rollout_host(const float* params, const float* state,
                                    float pos_bound, float linvel_bound,
                                    float angvel_bound) {
   const raptor::Bounds b{pos_bound, linvel_bound, angvel_bound};
+  const raptor::HostTeam<raptor::ROLLOUT_TEAM> tm;
   for (long i = 0; i < n; ++i) {
-    raptor::rollout_env(i, n, params, state, action, state_out, stats, n_steps,
-                        dt, b);
+    raptor::team_rollout_env(tm, i, n, params, state, action, state_out, stats,
+                             n_steps, dt, b);
   }
   return 0;
 }
 
+namespace {
+
+template <int H>
+int eval_host(const float* weights, const float* params, const float* state,
+              float* state_out, float* stats, int n, int n_steps, float dt,
+              raptor::Bounds b, raptor::RewardWeights rw) {
+  constexpr int K = raptor::EVAL_TEAM;
+  std::vector<raptor::Vec4> wt(raptor::TeamLayout<H, K>::FLOATS / 4);
+  raptor::stage_team_weights<H, K>(weights, &wt[0].x, 0, 1);
+  const raptor::HostTeam<K> tm;
+  for (long i = 0; i < n; ++i) {
+    raptor::team_eval_env<raptor::HostTeam<K>, H>(tm, i, n, wt.data(), weights,
+                                                  params, state, state_out,
+                                                  stats, n_steps, dt, b, rw);
+  }
+  return 0;
+}
+
+template <int H>
+int collect_host(const float* weights, const float* params, const float* state,
+                 float* out, int n, int n_steps, float dt, float episode_length,
+                 raptor::Bounds b, raptor::InitSpec init, unsigned int seed,
+                 unsigned int env_offset) {
+  for (long i = 0; i < n; ++i) {
+    raptor::collect_env<H>(i, n, weights, params, state, out, n_steps, dt,
+                           episode_length, b, init, seed, env_offset);
+  }
+  return 0;
+}
+
+}  // namespace
+
+// -1 for a hidden width that is not instantiated
 extern "C" int raptor_eval_host(const float* weights, const float* params,
                                 const float* state, float* state_out,
-                                float* stats, int n, int n_steps, float dt,
-                                float pos_bound, float linvel_bound,
+                                float* stats, int n, int n_steps, int hidden,
+                                float dt, float pos_bound, float linvel_bound,
                                 float angvel_bound, float r_scale,
                                 float r_constant, float r_position,
                                 float r_orientation, float r_linear_velocity,
@@ -33,31 +72,31 @@ extern "C" int raptor_eval_host(const float* weights, const float* params,
                                  r_position,        r_orientation,
                                  r_linear_velocity, r_angular_velocity,
                                  r_action};
-  for (long i = 0; i < n; ++i) {
-    raptor::eval_env(i, n, weights, params, state, state_out, stats, n_steps,
-                     dt, b, rw);
-  }
-  return 0;
+#define RAPTOR_RUN(H) \
+  return eval_host<H>(weights, params, state, state_out, stats, n, n_steps, dt, b, rw)
+  RAPTOR_HIDDEN_DISPATCH(hidden, RAPTOR_RUN)
+#undef RAPTOR_RUN
 }
 
+// -1 for a hidden width that is not instantiated
 extern "C" int raptor_collect_host(const float* weights, const float* params,
                                    const float* state, float* out, int n,
-                                   int n_steps, float dt, float episode_length,
-                                   float pos_bound, float linvel_bound,
-                                   float angvel_bound, float position_range,
-                                   float max_angle, float angle_power,
-                                   float linear_velocity_std,
+                                   int n_steps, int hidden, float dt,
+                                   float episode_length, float pos_bound,
+                                   float linvel_bound, float angvel_bound,
+                                   float position_range, float max_angle,
+                                   float angle_power, float linear_velocity_std,
                                    float angular_velocity_std, int rpm_at_hover,
                                    unsigned int seed, unsigned int env_offset) {
   const raptor::Bounds b{pos_bound, linvel_bound, angvel_bound};
   const raptor::InitSpec init{position_range,      max_angle,
                               angle_power,         linear_velocity_std,
                               angular_velocity_std, rpm_at_hover};
-  for (long i = 0; i < n; ++i) {
-    raptor::collect_env(i, n, weights, params, state, out, n_steps, dt,
-                        episode_length, b, init, seed, env_offset);
-  }
-  return 0;
+#define RAPTOR_RUN(H)                                                       \
+  return collect_host<H>(weights, params, state, out, n, n_steps, dt,        \
+                         episode_length, b, init, seed, env_offset)
+  RAPTOR_HIDDEN_DISPATCH(hidden, RAPTOR_RUN)
+#undef RAPTOR_RUN
 }
 
 // hashed[k] = lowbias32(counters[k]); uniforms[k] = uniform01(counters[k], draw)

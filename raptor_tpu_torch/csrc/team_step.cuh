@@ -1,0 +1,635 @@
+// One env flown by a team of K lanes of one warp: the per-env step of the
+// eval (eval.cu) and rollout (rollout.cu) kernels, shared with the host shim
+// (host_shim.cpp) that the CPU tests build with g++.
+//
+// How the work of an env-step is split over the team:
+// - policy, by hidden unit: lane l owns units l*H/K .. (l+1)*H/K - 1 (their
+//   rows of w0, the three gate rows of wi and wh, their biases, h0 and their
+//   columns of w2). It computes their input projection, their GRU gates and
+//   their new hidden values, and its partial sums of the 4 actions. x and h
+//   reach every lane of the team by shuffles; the action sums by a butterfly.
+// - physics, by rotor: lane l owns rotor l (for K = 4; rotors 2l and 2l + 1
+//   for K = 2; all four for K = 1; rotor l % 4 for K = 8): its thrust and
+//   its lag state. The four thrusts reach every lane by shuffles (one
+//   exchange, none for K = 1), and every lane
+//   forms the force and torque from per-rotor coefficients computed once an
+//   episode (thrust direction d, and r x d + s kappa d). The rest (p, q, v, w:
+//   13 floats; the force rotation, the quaternion rate, Euler's equation, the
+//   RK4 combination, the renormalisation, observation, reward and
+//   termination) runs redundantly on every lane: same inputs, same
+//   instructions, so the same bits on every lane.
+// - parameters: each lane reads the ones it uses into registers once an
+//   episode (LaneParams), with 1/m and 1/tau computed once.
+//
+// The exchange goes through a Team. DeviceTeam<K> is one lane a thread and
+// exchanges with __shfl_xor_sync / __shfl_sync under the team's mask.
+// HostTeam<K> runs the K lanes of a team in one thread, phase by phase, with
+// the same butterfly order. Values a lane holds are arrays [Team::N]: one
+// entry on the card, K on the host. The butterfly leaves the same sum on
+// every lane (a + b == b + a in IEEE arithmetic), and `done` is broadcast from
+// lane 0, so a team cannot split.
+//
+// Sums differ in order from the one-thread code: the 4 actions add the lanes'
+// partial sums in a butterfly, then the bias; the torque is the sum of each
+// rotor's thrust times its coefficient r x d + s kappa d, where the one-thread
+// code adds r x (t d) and s kappa t d term by term.
+#pragma once
+
+#include "quad_step.cuh"
+
+namespace raptor {
+
+// Lanes an env of the eval and the rollout kernel, chosen by measurement over
+// 1, 2, 4 and 8 (apps/team_sweep.py, PERF.md); compile-time, one value a build.
+// The rollout flies fastest on one lane: a team of one exchanges nothing and
+// keeps only the parameters in registers.
+constexpr int EVAL_TEAM = 2;
+constexpr int ROLLOUT_TEAM = 1;
+
+constexpr int COMMON = 13;  // p(3) q(4) v(3) w(3): the state every lane holds
+
+struct alignas(16) Vec4 {
+  float x, y, z, w;
+};
+
+// one 16-byte load (LDS.128 from shared memory on the card)
+RAPTOR_HD Vec4 load4(const Vec4* p) {
+#ifdef __CUDA_ARCH__
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return Vec4{v.x, v.y, v.z, v.w};
+#else
+  return *p;
+#endif
+}
+
+RAPTOR_HD float comp(const Vec4& v, int e) {
+  return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+// a[idx] for a runtime idx < 4, by selects (no local-memory array on the card)
+RAPTOR_HD float pick4(const float* a, int idx) {
+  return idx == 0 ? a[0] : (idx == 1 ? a[1] : (idx == 2 ? a[2] : a[3]));
+}
+
+// ---------------------------------------------------------------------------
+// the team primitive
+// ---------------------------------------------------------------------------
+
+// This thread is lane `l` of a team of K neighbouring lanes of its warp.
+template <int K>
+struct DeviceTeam {
+  static constexpr int N = 1;  // lanes this thread runs
+  static constexpr int SIZE = K;
+  unsigned mask;  // the team's lanes in the warp
+  int l;
+  RAPTOR_HD int lane(int) const { return l; }
+  // v[0] <- the sum of v over the aligned group of W lanes (xor butterfly)
+  template <int W>
+  RAPTOR_HD void sum(float* v) const {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+    for (int m = 1; m < W; m <<= 1) v[0] += __shfl_xor_sync(mask, v[0], m, K);
+#endif
+  }
+  // v[0] <- lane 0's v[0]
+  RAPTOR_HD void bcast0(int* v) const {
+#ifdef __CUDA_ARCH__
+    if (K > 1) v[0] = __shfl_sync(mask, v[0], 0, K);
+#endif
+  }
+  // all[0][i] <- own[0][i % U] of lane i / U
+  template <int U, int M = U * K>
+  RAPTOR_HD void gather(const float (*own)[U], float (*all)[M]) const {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      all[0][i] = K == 1 ? own[0][i % U] : __shfl_sync(mask, own[0][i % U], i / U, K);
+    }
+#endif
+  }
+};
+
+// The K lanes of a team run by one host thread: each exchange is a phase
+// boundary between the lanes' arithmetic.
+template <int K>
+struct HostTeam {
+  static constexpr int N = K;
+  static constexpr int SIZE = K;
+  int lane(int j) const { return j; }
+  template <int W>
+  void sum(float* v) const {
+    for (int m = 1; m < W; m <<= 1) {
+      float t[K];
+      for (int l = 0; l < K; ++l) t[l] = v[l] + v[l ^ m];
+      for (int l = 0; l < K; ++l) v[l] = t[l];
+    }
+  }
+  void bcast0(int* v) const {
+    for (int l = 1; l < K; ++l) v[l] = v[0];
+  }
+  template <int U, int M = U * K>
+  void gather(const float (*own)[U], float (*all)[M]) const {
+    for (int l = 0; l < K; ++l) {
+      for (int i = 0; i < M; ++i) all[l][i] = own[i / U][i % U];
+    }
+  }
+};
+
+#ifdef __CUDACC__
+// Threads a block for n_threads lanes: 1 to 4 warps, fewer where the grid
+// would not give every SM two blocks.
+inline int team_block_threads(long n_threads) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long per_block = (n_threads + 31) / 32 / (2L * sms);
+  return 32 * static_cast<int>(per_block < 1 ? 1 : (per_block > 4 ? 4 : per_block));
+}
+#endif
+
+// ---------------------------------------------------------------------------
+// physics of one lane
+// ---------------------------------------------------------------------------
+
+template <int K>
+struct TeamShape {
+  static constexpr int RL = K < 4 ? K : 4;  // lanes that own rotors
+  static constexpr int R = 4 / RL;          // rotors a lane owns
+  RAPTOR_HD static int rotor(int l, int k) { return (l % RL) * R + k; }
+};
+
+// The parameters one lane uses, in registers for the episode.
+struct LaneParams {
+  float inv_m, J[3], Jinv[3], c0, c1, c2, kappa, rpm_min, rpm_max, inv_tm;
+  // every rotor's thrust direction d and torque per unit thrust r x d + s kappa d
+  float d[4][3], c[4][3];
+};
+
+RAPTOR_HD LaneParams lane_params(const ParamColumn& P) {
+  LaneParams lp;
+  lp.inv_m = 1.f / P[0];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    lp.J[c] = P[1 + c];
+    lp.Jinv[c] = P[4 + c];
+  }
+  lp.c0 = P[35];
+  lp.c1 = P[36];
+  lp.c2 = P[37];
+  lp.kappa = P[38];
+  lp.rpm_min = P[39];
+  lp.rpm_max = P[40];
+  lp.inv_tm = 1.f / P[41];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float rx = P[7 + 3 * i], ry = P[8 + 3 * i], rz = P[9 + 3 * i];
+    const float dx = P[19 + 3 * i], dy = P[20 + 3 * i], dz = P[21 + 3 * i];
+    const float sk = P[31 + i] * lp.kappa;
+    lp.d[i][0] = dx;
+    lp.d[i][1] = dy;
+    lp.d[i][2] = dz;
+    lp.c[i][0] = (ry * dz - rz * dy) + sk * dx;
+    lp.c[i][1] = (rz * dx - rx * dz) + sk * dy;
+    lp.c[i][2] = (rx * dy - ry * dx) + sk * dz;
+  }
+  return lp;
+}
+
+RAPTOR_HD float lane_setpoint(const LaneParams& lp, float action) {
+  return lp.rpm_min + (clip(action, -1.f, 1.f) + 1.f) * 0.5f * (lp.rpm_max - lp.rpm_min);
+}
+
+// d/dt of p, q, v, w under the summed wrench f (quad_step.cuh `derivative`,
+// pallas_rollout.py:134-193 term for term)
+RAPTOR_HD void body_derivative(const LaneParams& lp, const float* s,
+                               const float* f, float* d) {
+  const float qw = s[3], qx = s[4], qy = s[5], qz = s[6];
+  const float wx = s[10], wy = s[11], wz = s[12];
+  const float fx = f[0], fy = f[1], fz = f[2], tx = f[3], ty = f[4], tz = f[5];
+  const float t2x = 2.f * (qy * fz - qz * fy);
+  const float t2y = 2.f * (qz * fx - qx * fz);
+  const float t2z = 2.f * (qx * fy - qy * fx);
+  const float fwx = fx + qw * t2x + (qy * t2z - qz * t2y);
+  const float fwy = fy + qw * t2y + (qz * t2x - qx * t2z);
+  const float fwz = fz + qw * t2z + (qx * t2y - qy * t2x);
+  d[0] = s[7];
+  d[1] = s[8];
+  d[2] = s[9];
+  d[3] = 0.5f * (-qx * wx - qy * wy - qz * wz);
+  d[4] = 0.5f * (qw * wx + qy * wz - qz * wy);
+  d[5] = 0.5f * (qw * wy - qx * wz + qz * wx);
+  d[6] = 0.5f * (qw * wz + qx * wy - qy * wx);
+  d[7] = fwx * lp.inv_m;
+  d[8] = fwy * lp.inv_m;
+  d[9] = fwz * lp.inv_m - 9.81f;
+  const float hx = lp.J[0] * wx, hy = lp.J[1] * wy, hz = lp.J[2] * wz;
+  d[10] = lp.Jinv[0] * (tx - (wy * hz - wz * hy));
+  d[11] = lp.Jinv[1] * (ty - (wz * hx - wx * hz));
+  d[12] = lp.Jinv[2] * (tz - (wx * hy - wy * hx));
+}
+
+// ds/dt of the team: the common state's on every lane, the own rotors' lag.
+// The thrusts of the R rotors a lane owns are gathered so every lane holds
+// all four.
+template <class Team, int R>
+RAPTOR_HD void team_derivative(const Team& tm, const LaneParams (&lp)[Team::N],
+                               const float (&s)[Team::N][COMMON],
+                               const float (&u)[Team::N][R],
+                               const float (&sp)[Team::N][R],
+                               float (&d)[Team::N][COMMON],
+                               float (&du)[Team::N][R]) {
+  constexpr int N = Team::N;
+  float t[N][R], all[N][4];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      t[j][k] = lp[j].c0 + lp[j].c1 * u[j][k] + lp[j].c2 * u[j][k] * u[j][k];
+    }
+  }
+  tm.template gather<R, 4>(t, all);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float w[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        w[c] += all[j][i] * lp[j].d[i][c];
+        w[3 + c] += all[j][i] * lp[j].c[i][c];
+      }
+    }
+    body_derivative(lp[j], s[j], w, d[j]);
+#pragma unroll
+    for (int k = 0; k < R; ++k) du[j][k] = (sp[j][k] - u[j][k]) * lp[j].inv_tm;
+  }
+}
+
+// One RK4 step of the team, then quaternion renormalize and rpm clip to
+// [0, rpm_max] (quad_step.cuh `rk4_step`).
+template <class Team, int R>
+RAPTOR_HD void team_rk4(const Team& tm, const LaneParams (&lp)[Team::N],
+                        const float (&s)[Team::N][COMMON],
+                        const float (&u)[Team::N][R],
+                        const float (&sp)[Team::N][R], float dt,
+                        float (&out)[Team::N][COMMON], float (&uout)[Team::N][R]) {
+  constexpr int N = Team::N;
+  float k[N][COMMON], ku[N][R], acc[N][COMMON], accu[N][R], tmp[N][COMMON],
+      tmpu[N][R];
+  team_derivative(tm, lp, s, u, sp, k, ku);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int c = 0; c < COMMON; ++c) {
+      acc[j][c] = k[j][c];
+      tmp[j][c] = s[j][c] + dt * 0.5f * k[j][c];
+    }
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      accu[j][c] = ku[j][c];
+      tmpu[j][c] = u[j][c] + dt * 0.5f * ku[j][c];
+    }
+  }
+  team_derivative(tm, lp, tmp, tmpu, sp, k, ku);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int c = 0; c < COMMON; ++c) {
+      acc[j][c] = acc[j][c] + 2.f * k[j][c];
+      tmp[j][c] = s[j][c] + dt * 0.5f * k[j][c];
+    }
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      accu[j][c] = accu[j][c] + 2.f * ku[j][c];
+      tmpu[j][c] = u[j][c] + dt * 0.5f * ku[j][c];
+    }
+  }
+  team_derivative(tm, lp, tmp, tmpu, sp, k, ku);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int c = 0; c < COMMON; ++c) {
+      acc[j][c] = acc[j][c] + 2.f * k[j][c];
+      tmp[j][c] = s[j][c] + dt * k[j][c];
+    }
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      accu[j][c] = accu[j][c] + 2.f * ku[j][c];
+      tmpu[j][c] = u[j][c] + dt * ku[j][c];
+    }
+  }
+  team_derivative(tm, lp, tmp, tmpu, sp, k, ku);
+  const float dt6 = dt / 6.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int c = 0; c < COMMON; ++c) out[j][c] = s[j][c] + dt6 * (acc[j][c] + k[j][c]);
+    const float inv_norm =
+        1.f / sqrtf(out[j][3] * out[j][3] + out[j][4] * out[j][4] +
+                    out[j][5] * out[j][5] + out[j][6] * out[j][6]);
+#pragma unroll
+    for (int c = 3; c < 7; ++c) out[j][c] *= inv_norm;
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      uout[j][c] = clip(u[j][c] + dt6 * (accu[j][c] + ku[j][c]), 0.f, lp[j].rpm_max);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// policy of one lane
+// ---------------------------------------------------------------------------
+
+// The weights of hidden width H in team-lane order. Each lane's weights are a
+// stream of 16-byte slots in the order it reads them; slot q of lane l lives
+// at Vec4 index q * K + l, so a warp-wide 16-byte load reads K neighbouring
+// 16-byte words (4K distinct banks, K <= 8) and the teams of a warp share
+// them (a broadcast).
+template <int H, int K>
+struct TeamLayout {
+  static_assert(H % K == 0 && H % 4 == 0, "hidden width must split into float4 rows");
+  static constexpr int U = H / K;            // hidden units a lane owns
+  static constexpr int C = H / 4;            // slots of a GRU row
+  static constexpr int OC = (OBS + 3) / 4;   // slots of a w0 row (22 -> 24, zero pad)
+  static constexpr int W0 = 0;               // [U][OC]
+  static constexpr int BIAS = W0 + U * OC;   // [U][2]: (b0, bi r z n), (bh r z n, 0)
+  static constexpr int GRU = BIAS + 2 * U;   // [U][C][6]: wi_r wh_r wi_z wh_z wi_n wh_n
+  static constexpr int W2 = GRU + U * C * 6; // [U]: w2[0..3] of the unit
+  static constexpr int B2 = W2 + U;          // b2[0..3]
+  static constexpr int SLOTS = B2 + 1;       // a lane
+  static constexpr int FLOATS = SLOTS * K * 4;
+};
+
+// Component e of slot q of lane l, from the flat layout W.
+template <int H, int K>
+RAPTOR_HD float team_weight(const float* W, int l, int q, int e) {
+  using T = TeamLayout<H, K>;
+  using L = Layout<H>;
+  if (q < T::BIAS) {
+    const int i = l * T::U + q / T::OC, j = 4 * (q % T::OC) + e;
+    return j < OBS ? W[L::W0 + i * OBS + j] : 0.f;
+  }
+  if (q < T::GRU) {
+    const int i = l * T::U + (q - T::BIAS) / 2;
+    if ((q - T::BIAS) % 2 == 0) return e == 0 ? W[L::B0 + i] : W[L::BI + (e - 1) * H + i];
+    return e < 3 ? W[L::BH + e * H + i] : 0.f;
+  }
+  if (q < T::W2) {
+    const int r = q - T::GRU, g = r % 6;
+    const int i = l * T::U + r / (6 * T::C), j = 4 * ((r / 6) % T::C) + e;
+    const int row = (g / 2) * H + i;
+    return W[(g % 2 ? L::WH : L::WI) + row * H + j];
+  }
+  if (q < T::B2) return W[L::W2 + e * H + l * T::U + (q - T::W2)];
+  return W[L::B2 + e];
+}
+
+// out[k] for k = first, first + step, ... < FLOATS: the team layout of W
+template <int H, int K>
+RAPTOR_HD void stage_team_weights(const float* W, float* out, int first, int step) {
+  for (int k = first; k < TeamLayout<H, K>::FLOATS; k += step) {
+    out[k] = team_weight<H, K>(W, (k / 4) % K, k / (4 * K), k % 4);
+  }
+}
+
+// x_own[u] = relu(b0 + w0 obs) for the lane's units
+template <int H, int K>
+RAPTOR_HD void dense0_lane(const Vec4* Wt, int l, const float* obs, float* x_own) {
+  using T = TeamLayout<H, K>;
+#pragma unroll
+  for (int u = 0; u < T::U; ++u) {
+    float acc = load4(Wt + (T::BIAS + 2 * u) * K + l).x;
+#pragma unroll
+    for (int c = 0; c < T::OC; ++c) {
+      const Vec4 w = load4(Wt + (T::W0 + u * T::OC + c) * K + l);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (4 * c + e < OBS) acc += comp(w, e) * obs[4 * c + e];
+      }
+    }
+    x_own[u] = max_nan(acc, 0.f);
+  }
+}
+
+// The GRU's new hidden values of the lane's units from the whole x and h
+template <int H, int K>
+RAPTOR_HD void gru_lane(const Vec4* Wt, int l, const float* x, const float* h,
+                        const float* h_own, float* h_new_own) {
+  using T = TeamLayout<H, K>;
+#pragma unroll
+  for (int u = 0; u < T::U; ++u) {
+    const Vec4 bi = load4(Wt + (T::BIAS + 2 * u) * K + l);
+    const Vec4 bh = load4(Wt + (T::BIAS + 2 * u + 1) * K + l);
+    float gi_r = bi.y, gi_z = bi.z, gi_n = bi.w;
+    float gh_r = bh.x, gh_z = bh.y, gh_n = bh.z;
+#pragma unroll
+    for (int c = 0; c < T::C; ++c) {
+      const Vec4* row = Wt + (T::GRU + (u * T::C + c) * 6) * K + l;
+      const Vec4 wir = load4(row), whr = load4(row + K);
+      const Vec4 wiz = load4(row + 2 * K), whz = load4(row + 3 * K);
+      const Vec4 win = load4(row + 4 * K), whn = load4(row + 5 * K);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float xj = x[4 * c + e], hj = h[4 * c + e];
+        gi_r += comp(wir, e) * xj;
+        gh_r += comp(whr, e) * hj;
+        gi_z += comp(wiz, e) * xj;
+        gh_z += comp(whz, e) * hj;
+        gi_n += comp(win, e) * xj;
+        gh_n += comp(whn, e) * hj;
+      }
+    }
+    const float r = sigmoid(gi_r + gh_r);
+    const float z = sigmoid(gi_z + gh_z);
+    const float n = tanhf(gi_n + r * gh_n);
+    h_new_own[u] = (1.f - z) * n + z * h_own[u];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the per-env loops
+// ---------------------------------------------------------------------------
+
+// Env i of n, flown by the team `tm`: n_steps RK4 steps under its constant
+// action. A terminated env keeps its pre-step state and its team leaves the
+// loop; the step it dies on counts toward its length. stats is [2, n]:
+// alive, length.
+template <class Team>
+RAPTOR_HD void team_rollout_env(const Team& tm, long i, long n, const float* params,
+                                const float* state, const float* action,
+                                float* state_out, float* stats, int n_steps,
+                                float dt, Bounds b) {
+  constexpr int N = Team::N;
+  using S = TeamShape<Team::SIZE>;
+  constexpr int R = S::R;
+  const ParamColumn P{params + i, n};
+  LaneParams lp[N];
+  float s[N][COMMON], u[N][R], sp[N][R], s2[N][COMMON], u2[N][R];
+  int done[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int l = tm.lane(j);
+    lp[j] = lane_params(P);
+#pragma unroll
+    for (int c = 0; c < COMMON; ++c) s[j][c] = load_ro(state + c * n + i);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int rot = S::rotor(l, k);
+      u[j][k] = load_ro(state + (COMMON + rot) * n + i);
+      sp[j][k] = lane_setpoint(lp[j], load_ro(action + rot * n + i));
+    }
+  }
+  float alive = 1.f, length = 0.f;
+  for (int t = 0; t < n_steps; ++t) {
+    team_rk4(tm, lp, s, u, sp, dt, s2, u2);
+    length += 1.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) done[j] = terminated(s2[j], b);
+    tm.bcast0(done);
+    if (done[0]) {
+      alive = 0.f;
+      break;
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+#pragma unroll
+      for (int c = 0; c < COMMON; ++c) s[j][c] = s2[j][c];
+#pragma unroll
+      for (int k = 0; k < R; ++k) u[j][k] = u2[j][k];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int l = tm.lane(j);
+    if (l == 0) {
+#pragma unroll
+      for (int c = 0; c < COMMON; ++c) state_out[c * n + i] = s[j][c];
+      stats[i] = alive;
+      stats[n + i] = length;
+    }
+    if (l < S::RL) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) state_out[(COMMON + S::rotor(l, k)) * n + i] = u[j][k];
+    }
+  }
+}
+
+// Env i of n, flown by the team `tm`: a whole closed-loop episode of n_steps
+// (obs -> policy -> clip -> setpoint -> RK4 -> reward -> termination). Wt is
+// the team layout of the weights, W the flat layout (for h0). Reward and
+// length accrue while alive at step start; a terminated env keeps its
+// pre-step state, hidden state and previous action, and its team leaves the
+// loop. stats is [3, n]: alive, length, return.
+template <class Team, int H>
+RAPTOR_HD void team_eval_env(const Team& tm, long i, long n, const Vec4* Wt,
+                             const float* W, const float* params,
+                             const float* state, float* state_out, float* stats,
+                             int n_steps, float dt, Bounds b, RewardWeights rw) {
+  constexpr int N = Team::N, K = Team::SIZE;
+  using S = TeamShape<K>;
+  using T = TeamLayout<H, K>;
+  constexpr int R = S::R, U = T::U;
+  const ParamColumn P{params + i, n};
+  LaneParams lp[N];
+  float s[N][COMMON], u[N][R], sp[N][R], s2[N][COMMON], u2[N][R];
+  float h[N][H], h_new[N][H], h_own[N][U], h_new_own[N][U], x_own[N][U], x[N][H];
+  float prev[N][ACT], act[N][ACT], part[ACT][N], hover[N], ret[N];
+  int done[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int l = tm.lane(j);
+    lp[j] = lane_params(P);
+#pragma unroll
+    for (int c = 0; c < COMMON; ++c) s[j][c] = load_ro(state + c * n + i);
+#pragma unroll
+    for (int k = 0; k < R; ++k) u[j][k] = load_ro(state + (COMMON + S::rotor(l, k)) * n + i);
+#pragma unroll
+    for (int c = 0; c < H; ++c) h[j][c] = load_ro(W + Layout<H>::H0 + c);
+#pragma unroll
+    for (int c = 0; c < U; ++c) h_own[j][c] = load_ro(W + Layout<H>::H0 + l * U + c);
+#pragma unroll
+    for (int c = 0; c < ACT; ++c) prev[j][c] = 0.f;
+    hover[j] = hover_action(P);
+    ret[j] = 0.f;
+  }
+  float alive = 1.f, length = 0.f;
+  for (int t = 0; t < n_steps; ++t) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float obs[OBS];
+      observe22(s[j], prev[j], obs);
+      dense0_lane<H, K>(Wt, tm.lane(j), obs, x_own[j]);
+    }
+    tm.template gather<U>(x_own, x);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int l = tm.lane(j);
+      gru_lane<H, K>(Wt, l, x[j], h[j], h_own[j], h_new_own[j]);
+#pragma unroll
+      for (int a = 0; a < ACT; ++a) part[a][j] = 0.f;
+#pragma unroll
+      for (int c = 0; c < U; ++c) {
+        const Vec4 w2 = load4(Wt + (T::W2 + c) * K + l);
+        part[0][j] += w2.x * h_new_own[j][c];
+        part[1][j] += w2.y * h_new_own[j][c];
+        part[2][j] += w2.z * h_new_own[j][c];
+        part[3][j] += w2.w * h_new_own[j][c];
+      }
+    }
+    tm.template gather<U>(h_new_own, h_new);
+#pragma unroll
+    for (int a = 0; a < ACT; ++a) tm.template sum<K>(part[a]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int l = tm.lane(j);
+      const Vec4 b2 = load4(Wt + T::B2 * K + l);
+#pragma unroll
+      for (int a = 0; a < ACT; ++a) act[j][a] = clip(comp(b2, a) + part[a][j], -1.f, 1.f);
+#pragma unroll
+      for (int k = 0; k < R; ++k) sp[j][k] = lane_setpoint(lp[j], pick4(act[j], S::rotor(l, k)));
+    }
+    team_rk4(tm, lp, s, u, sp, dt, s2, u2);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      ret[j] += reward(s2[j], act[j], hover[j], rw);
+      done[j] = terminated(s2[j], b);
+    }
+    length += 1.f;
+    tm.bcast0(done);
+    if (done[0]) {
+      alive = 0.f;
+      break;
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+#pragma unroll
+      for (int c = 0; c < COMMON; ++c) s[j][c] = s2[j][c];
+#pragma unroll
+      for (int k = 0; k < R; ++k) u[j][k] = u2[j][k];
+#pragma unroll
+      for (int c = 0; c < H; ++c) h[j][c] = h_new[j][c];
+#pragma unroll
+      for (int c = 0; c < U; ++c) h_own[j][c] = h_new_own[j][c];
+#pragma unroll
+      for (int a = 0; a < ACT; ++a) prev[j][a] = act[j][a];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int l = tm.lane(j);
+    if (l == 0) {
+#pragma unroll
+      for (int c = 0; c < COMMON; ++c) state_out[c * n + i] = s[j][c];
+      stats[i] = alive;
+      stats[n + i] = length;
+      stats[2 * n + i] = ret[j];
+    }
+    if (l < S::RL) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) state_out[(COMMON + S::rotor(l, k)) * n + i] = u[j][k];
+    }
+  }
+}
+
+}  // namespace raptor

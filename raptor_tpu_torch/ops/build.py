@@ -1,11 +1,12 @@
 """Build and load the port's native code from `raptor_tpu_torch/csrc/`.
 
 - `cuda_library()`: the CUDA kernels (`rollout.cu`, `eval.cu`, `collect.cu`,
-  `fma_peak.cu`), each source compiled by its own `nvcc` process (all started together) for
-  sm_90a, then linked into one shared library with a plain C interface, loaded
-  with ctypes.
+  `fma_peak.cu`; the eval and collect sources once for each hidden width in
+  `HIDDEN_WIDTHS`), each unit compiled by its own `nvcc` process (all started
+  together) for sm_90a, then linked into one shared library with a plain C
+  interface, loaded with ctypes.
 - `host_library()`: `host_shim.cpp`, the kernels' per-env code looped on the
-  CPU, built with g++ for the CPU tests.
+  CPU (a team's lanes phase by phase), built with g++ for the CPU tests.
 
 Both are built at first use into `build/raptor_tpu_torch/` beside the
 package, under a name that hashes the sources and flags, so an edited source
@@ -21,12 +22,22 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raptor_tpu_torch"
-HEADERS = ("quad_step.cuh", "fma_chain.cuh")
+HEADERS = ("quad_step.cuh", "team_step.cuh", "fma_chain.cuh")
+# the hidden widths the eval and collect kernels are built for: one object a
+# width, exporting raptor_eval_<H> and raptor_collect_<H>
+HIDDEN_WIDTHS = (8, 16, 24, 32, 48)
 CUDA_SOURCES = ("rollout.cu", "eval.cu", "collect.cu", "fma_peak.cu")
+# (source, extra nvcc flags) of each object
+CUDA_UNITS = (
+    ("rollout.cu", ()), ("fma_peak.cu", ()),
+    *((src, (f"-DRAPTOR_HIDDEN={h}",)) for src in ("eval.cu", "collect.cu")
+      for h in HIDDEN_WIDTHS),
+)
 HOST_SOURCE = "host_shim.cpp"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,12 +49,13 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _L = ctypes.c_long
 # pointers..., n, n_steps, dt, pos_bound, linvel_bound, angvel_bound
 ROLLOUT_ARGS = [_P] * 5 + [_I, _I] + [_F] * 4
-# weights, params, state, out, stats, n, n_steps, dt, bounds(3), reward(7)
+# weights, params, state, out, stats, n, n_steps, dt, bounds(3), reward(7);
+# the host shim's takes the hidden width after n_steps
 EVAL_ARGS = [_P] * 5 + [_I, _I] + [_F] * 4 + [_F] * 7
 # position_range, max_angle, angle_power, linear/angular velocity std, rpm_at_hover
 INIT_ARGS = [_F] * 5 + [_I]
 # weights, params, state, out, n, n_steps, dt, episode_length, bounds(3),
-# init(6), seed, env_offset
+# init(6), seed, env_offset; the host shim's takes the hidden width after n_steps
 COLLECT_ARGS = [_P] * 4 + [_I, _I] + [_F] * 5 + INIT_ARGS + [_U, _U]
 # x, out, n, depth, nfma, a, b
 FMA_PEAK_ARGS = [_P, _P, _L, _I, _I, _F, _F]
@@ -78,16 +90,26 @@ def nvcc_path() -> str:
 def _build_cuda(lib: Path) -> None:
     nvcc = nvcc_path()
     tmp = f".{os.getpid()}"
-    objs = [lib.with_name(f"{lib.stem}.{src}{tmp}.o") for src in CUDA_SOURCES]
+    objs = [lib.with_name(f"{lib.stem}.{k}{tmp}.o") for k in range(len(CUDA_UNITS))]
+    t0 = time.perf_counter()
     procs = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+            [nvcc, *NVCC_FLAGS, *defs, "-c", str(CSRC / src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        for src, obj in zip(CUDA_SOURCES, objs)
+        for (src, defs), obj in zip(CUDA_UNITS, objs)
     ]
-    logs = [p.communicate()[0] for p in procs]
-    failed = [src for src, p in zip(CUDA_SOURCES, procs) if p.returncode]
+    seconds = [None] * len(procs)
+    while None in seconds:  # note when each unit finishes
+        for k, proc in enumerate(procs):
+            if seconds[k] is None and proc.poll() is not None:
+                seconds[k] = time.perf_counter() - t0
+        time.sleep(0.05)
+    logs = [
+        f"unit {src} {' '.join(defs)}: {sec:.1f} s\n" + p.communicate()[0]
+        for (src, defs), sec, p in zip(CUDA_UNITS, seconds, procs)
+    ]
+    failed = [unit for unit, p in zip(CUDA_UNITS, procs) if p.returncode]
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
     log = "".join(logs) + _run([nvcc, "-shared", "-o", str(lib) + tmp, *map(str, objs)])
@@ -124,16 +146,23 @@ def _load(kind: str, sources, flags, build, signatures) -> ctypes.CDLL:
 
 def cuda_library() -> ctypes.CDLL:
     """The CUDA kernels, built on first call. Entry points `raptor_rollout`,
-    `raptor_eval`, `raptor_collect` and `raptor_fma_peak` (which also fills an
-    int[3] with its chains a thread, block and grid) take a stream last and
-    return cudaGetLastError()."""
+    `raptor_eval_<H>` and `raptor_collect_<H>` for H in `HIDDEN_WIDTHS`, and
+    `raptor_fma_peak` (which also fills an int[3] with its chains a thread,
+    block and grid) take a stream last and return cudaGetLastError();
+    `raptor_rollout_threads_per_env` and `raptor_eval_threads_per_env` return
+    the lanes of a team, `raptor_collect_threads_per_env_<H>` the threads of
+    an env."""
+    units = " ".join(f"{src}{''.join(defs)}" for src, defs in CUDA_UNITS)
     return _load(
-        "raptor_cuda", CUDA_SOURCES, NVCC_FLAGS, _build_cuda,
+        "raptor_cuda", CUDA_SOURCES, (*NVCC_FLAGS, units), _build_cuda,
         {
             "raptor_rollout": ROLLOUT_ARGS + [_P],
-            "raptor_eval": EVAL_ARGS + [_P],
-            "raptor_collect": COLLECT_ARGS + [_P],
+            **{f"raptor_eval_{h}": EVAL_ARGS + [_P] for h in HIDDEN_WIDTHS},
+            **{f"raptor_collect_{h}": COLLECT_ARGS + [_P] for h in HIDDEN_WIDTHS},
             "raptor_fma_peak": FMA_PEAK_ARGS + [_P, _P],
+            "raptor_rollout_threads_per_env": [],
+            "raptor_eval_threads_per_env": [],
+            **{f"raptor_collect_threads_per_env_{h}": [] for h in HIDDEN_WIDTHS},
         },
     )
 
@@ -168,14 +197,16 @@ def cuda_sass_counts(kernel: str):
 def host_library() -> ctypes.CDLL:
     """The kernels' per-env code built for the CPU (`raptor_rollout_host`,
     `raptor_eval_host`, `raptor_collect_host`, `raptor_fma_peak_host`: the CUDA
-    entry points without the stream (and the geometry); `raptor_hash_host` and `raptor_sample_state_host`: the collect
-    kernel's PRNG and sampler on arrays of counters)."""
+    entry points without the stream (and the geometry), the eval and collect
+    ones with the hidden width after n_steps (-1 for one not built);
+    `raptor_hash_host` and `raptor_sample_state_host`: the collect kernel's
+    PRNG and sampler on arrays of counters)."""
     return _load(
         "raptor_host", (HOST_SOURCE,), GXX_FLAGS, _build_host,
         {
             "raptor_rollout_host": ROLLOUT_ARGS,
-            "raptor_eval_host": EVAL_ARGS,
-            "raptor_collect_host": COLLECT_ARGS,
+            "raptor_eval_host": EVAL_ARGS[:7] + [_I] + EVAL_ARGS[7:],
+            "raptor_collect_host": COLLECT_ARGS[:6] + [_I] + COLLECT_ARGS[6:],
             "raptor_fma_peak_host": FMA_PEAK_ARGS,
             "raptor_hash_host": [_P, _P, _P, _I, _U],
             "raptor_sample_state_host": [_P, _P, _P, _I] + INIT_ARGS,

@@ -17,8 +17,9 @@ whole. Dynamics are deterministic: the per-step disturbance forces of
 
 `collect_soa` is the kernel's wrapper: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes `collect_plain`, the same function in plain
-PyTorch. `launches` counts kernel launches. The kernel is built for the
-reference architecture only (hidden width 16, 22 observations).
+PyTorch. `launches` counts kernel launches. The kernel is built for 22
+observations and the hidden widths of `ops.eval.HIDDEN_WIDTHS`; another width
+raises `ValueError` and is collected by `distill.post_training.make_collect`.
 """
 
 from __future__ import annotations
@@ -41,7 +42,14 @@ from raptor_tpu_torch.env.types import (
     where,
 )
 from raptor_tpu_torch.ops import build
-from raptor_tpu_torch.ops.eval import N_WEIGHTS, flatten_policy, unflatten_policy
+from raptor_tpu_torch.ops.eval import (
+    check_hidden_width,
+    flatten_policy,
+    hidden_width,
+    n_weights,
+    require_built,
+    unflatten_policy,
+)
 from raptor_tpu_torch.ops.rollout import check_tensor
 from raptor_tpu_torch.policy import network
 
@@ -180,6 +188,13 @@ def collect_plain(
     return torch.stack(obs_rows), torch.stack(reset_rows)
 
 
+def threads_per_env(hidden: int = network.HIDDEN_DIM) -> int:
+    """Threads that fly one env in the collect kernel of this hidden width
+    (builds it)."""
+    require_built(hidden)
+    return getattr(build.cuda_library(), f"raptor_collect_threads_per_env_{hidden}")()
+
+
 def collect_soa(
     weights: torch.Tensor,
     params_soa: torch.Tensor,
@@ -189,14 +204,17 @@ def collect_soa(
     env_offset: int = 0,
     config: EnvConfig = EnvConfig(),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's wrapper: (weights [2084], params [42, N], state [17, N])
-    -> (obs [T, N, 22], reset [T, N]). On the card both are views of one
-    channel-major [T, 23, N] buffer, allocated once per call; `.contiguous()`
-    transposes obs where a caller needs it dense. Does not synchronize."""
+    """The kernel's wrapper: (weights [n_weights(H)], params [42, N], state
+    [17, N]) -> (obs [T, N, 22], reset [T, N]), H in HIDDEN_WIDTHS. On the
+    card both are views of one channel-major [T, 23, N] buffer, allocated once
+    per call; `.contiguous()` transposes obs where a caller needs it dense.
+    Does not synchronize."""
     global launches
     _check_config(config)
     device, n = state_soa.device, state_soa.shape[-1]
-    check_tensor("weights", weights, (N_WEIGHTS,), device)
+    hidden = hidden_width(weights)
+    require_built(hidden)
+    check_tensor("weights", weights, (n_weights(hidden),), device)
     check_tensor("params", params_soa, (N_PARAM, n), device)
     check_tensor("state", state_soa, (N_STATE, n), device)
     seed, env_offset = int(seed) & _M32, int(env_offset) & _M32
@@ -210,7 +228,7 @@ def collect_soa(
     out = torch.empty((int(n_steps), OUT_CH, n), dtype=torch.float32, device=device)
     term, init = config.termination, config.init
     with torch.cuda.device(device):
-        rc = lib.raptor_collect(
+        rc = getattr(lib, f"raptor_collect_{hidden}")(
             weights.data_ptr(), params_soa.data_ptr(), state_soa.data_ptr(), out.data_ptr(),
             n, int(n_steps), config.dt, float(config.episode_length), term.position_bound,
             term.linear_velocity_bound, term.angular_velocity_bound, init.position_range,
@@ -222,18 +240,6 @@ def collect_soa(
         raise RuntimeError(f"raptor_collect launch failed: CUDA error {rc}")
     launches += 1
     return out[:, :OBS_CH].permute(0, 2, 1), out[:, OBS_CH]
-
-
-def check_policy_width(policy_params: network.Params) -> None:
-    """The kernel is compiled for Dense(22->16) -> GRU(16) -> Dense(16->4)."""
-    hidden = policy_params["gru_1"]["initial_hidden_state"].shape[-1]
-    obs_dim = policy_params["dense_0"]["weights"].shape[-1]
-    if (hidden, obs_dim) != (network.HIDDEN_DIM, network.OBS_DIM):
-        raise ValueError(
-            f"the collect kernel is built for hidden width {network.HIDDEN_DIM} and "
-            f"{network.OBS_DIM} observations, got {hidden} and {obs_dim}; collect other "
-            "widths with distill.post_training.make_collect"
-        )
 
 
 def make_fused_collect(
@@ -248,7 +254,7 @@ def make_fused_collect(
     of the kernel serves every round's student."""
     device = resolve_device(device)
     _check_config(config)
-    check_policy_width(student_params)
+    check_hidden_width(student_params)
     weights = flatten_policy(student_params).detach().to(device)
 
     def run(params: DynamicsParams, state0: State, seed, env_offset=0):

@@ -3,9 +3,11 @@
 kernel (`csrc/eval.cu`).
 
 Counterpart of `raptor_tpu/ops/pallas_eval.py`, with two differences:
-- the 2,084 policy weights are an input (the flat layout of `flatten_policy`)
-  instead of constants baked into the kernel, so one build serves every
-  checkpoint;
+- the policy weights are an input (the flat layout of `flatten_policy`,
+  2,084 floats at hidden width 16) instead of constants baked into the kernel,
+  so one build serves every checkpoint of a width in `HIDDEN_WIDTHS`; another
+  width raises `ValueError` and is served by `eval_plain` or the eager
+  `rl.evaluation` loop;
 - termination is the full `env.quad.terminated` predicate (the Pallas kernel
   leaves out the linear-velocity bound, off at its 1000 m/s default, and the
   non-finite check), and a dead env freezes by a select, so a non-finite
@@ -15,6 +17,7 @@ reward and length accrue while the env is alive at step start.
 
 `eval_soa` is the kernel's wrapper: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes `eval_plain`. `launches` counts kernel launches.
+The kernel flies each env on a team of lanes (`threads_per_env()`).
 """
 
 from __future__ import annotations
@@ -43,27 +46,71 @@ from raptor_tpu_torch.policy import network
 
 launches = 0
 
-HIDDEN, OBS = network.HIDDEN_DIM, network.OBS_DIM
-# flat policy layout (raptor_tpu/ops/pallas_collect.py:85-116), in order
-_LAYOUT = (
-    ("dense_0", "weights", (HIDDEN, OBS)),
-    ("dense_0", "biases", (HIDDEN,)),
-    ("gru_1", "weights_input", (3 * HIDDEN, HIDDEN)),
-    ("gru_1", "weights_hidden", (3 * HIDDEN, HIDDEN)),
-    ("gru_1", "biases_input", (3 * HIDDEN,)),
-    ("gru_1", "biases_hidden", (3 * HIDDEN,)),
-    ("gru_1", "initial_hidden_state", (HIDDEN,)),
-    ("dense_2", "weights", (network.ACTION_DIM, HIDDEN)),
-    ("dense_2", "biases", (network.ACTION_DIM,)),
-)
-N_WEIGHTS = sum(torch.Size(shape).numel() for _, _, shape in _LAYOUT)  # 2084
+HIDDEN_WIDTHS = build.HIDDEN_WIDTHS  # the hidden widths the kernels are built for
+OBS, ACT = network.OBS_DIM, network.ACTION_DIM
+
+
+def _layout(hidden: int):
+    """(layer, name, shape) of the flat policy layout of a hidden width
+    (raptor_tpu/ops/pallas_collect.py:85-116), in order."""
+    return (
+        ("dense_0", "weights", (hidden, OBS)),
+        ("dense_0", "biases", (hidden,)),
+        ("gru_1", "weights_input", (3 * hidden, hidden)),
+        ("gru_1", "weights_hidden", (3 * hidden, hidden)),
+        ("gru_1", "biases_input", (3 * hidden,)),
+        ("gru_1", "biases_hidden", (3 * hidden,)),
+        ("gru_1", "initial_hidden_state", (hidden,)),
+        ("dense_2", "weights", (ACT, hidden)),
+        ("dense_2", "biases", (ACT,)),
+    )
+
+
+def n_weights(hidden: int) -> int:
+    """Floats of the flat layout of a hidden width: 2,084 at 16."""
+    return 6 * hidden * hidden + (OBS + 1 + 6 + 1 + ACT) * hidden + ACT
+
+
+def hidden_width(weights: torch.Tensor) -> int:
+    """The hidden width of a flat weight vector, from its length."""
+    n = weights.numel()
+    hidden = round((-(OBS + 12) + ((OBS + 12) ** 2 + 24 * (n - ACT)) ** 0.5) / 12)
+    if weights.dim() != 1 or hidden < 1 or n_weights(hidden) != n:
+        raise ValueError(f"weights of shape {tuple(weights.shape)} are no flat policy layout")
+    return hidden
+
+
+def check_hidden_width(policy_params: network.Params) -> int:
+    """The policy's hidden width; raises ValueError unless the kernels are
+    built for it (Dense(22->H) -> GRU(H) -> Dense(H->4), H in HIDDEN_WIDTHS)."""
+    hidden = policy_params["gru_1"]["initial_hidden_state"].shape[-1]
+    require_built(hidden, policy_params["dense_0"]["weights"].shape[-1])
+    return hidden
+
+
+def require_built(hidden: int, obs_dim: int = OBS) -> None:
+    """Raise ValueError, naming the built widths, unless the kernels are built
+    for this hidden width and observation width."""
+    if hidden not in HIDDEN_WIDTHS or obs_dim != OBS:
+        raise ValueError(
+            f"the eval and collect kernels are built for hidden widths {HIDDEN_WIDTHS} and "
+            f"{OBS} observations, got {hidden} and {obs_dim}; evaluate other widths with "
+            "ops.eval.eval_plain or rl.evaluation, collect them with "
+            "distill.post_training.make_collect"
+        )
+
+
+def threads_per_env() -> int:
+    """Lanes of a team that fly one env in the eval kernel (builds it)."""
+    return build.cuda_library().raptor_eval_threads_per_env()
 
 
 def flatten_policy(policy_params: network.Params) -> torch.Tensor:
-    """Policy dict -> one f32 [2084] vector: w0 . b0 . wi . wh . bi . bh . h0
-    . w2 . b2."""
+    """Policy dict -> one f32 vector in the flat layout: w0 . b0 . wi . wh .
+    bi . bh . h0 . w2 . b2, of the width of its hidden state."""
+    hidden = policy_params["gru_1"]["initial_hidden_state"].shape[-1]
     parts = []
-    for layer, name, shape in _LAYOUT:
+    for layer, name, shape in _layout(hidden):
         t = policy_params[layer][name]
         if tuple(t.shape) != shape:
             raise ValueError(f"{layer}/{name} has shape {tuple(t.shape)}, expected {shape}")
@@ -74,7 +121,7 @@ def flatten_policy(policy_params: network.Params) -> torch.Tensor:
 def unflatten_policy(weights: torch.Tensor) -> network.Params:
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     off = 0
-    for layer, name, shape in _LAYOUT:
+    for layer, name, shape in _layout(hidden_width(weights)):
         size = torch.Size(shape).numel()
         out.setdefault(layer, {})[name] = weights[off : off + size].reshape(shape)
         off += size
@@ -144,12 +191,14 @@ def eval_soa(
     angvel_bound: float = 35.0,
     reward_config: RewardConfig = RewardConfig(),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's wrapper: (weights [2084], params [42, N], state [17, N])
-    -> (state [17, N], stats [3, N] = alive, length, return). Does not
-    synchronize."""
+    """The kernel's wrapper: (weights [n_weights(H)], params [42, N], state
+    [17, N]) -> (state [17, N], stats [3, N] = alive, length, return), H in
+    HIDDEN_WIDTHS. Does not synchronize."""
     global launches
     device, n = state_soa.device, state_soa.shape[-1]
-    check_tensor("weights", weights, (N_WEIGHTS,), device)
+    hidden = hidden_width(weights)
+    require_built(hidden)
+    check_tensor("weights", weights, (n_weights(hidden),), device)
     check_tensor("params", params_soa, (N_PARAM, n), device)
     check_tensor("state", state_soa, (N_STATE, n), device)
     if device.type == "cpu":
@@ -163,7 +212,7 @@ def eval_soa(
     out = torch.empty_like(state_soa)
     stats = torch.empty((3, n), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        rc = lib.raptor_eval(
+        rc = getattr(lib, f"raptor_eval_{hidden}")(
             weights.data_ptr(), params_soa.data_ptr(), state_soa.data_ptr(),
             out.data_ptr(), stats.data_ptr(), n, int(n_steps), dt, pos_bound,
             linvel_bound, angvel_bound, *_reward_args(reward_config),
@@ -187,8 +236,10 @@ def make_fused_policy_eval(
 ):
     """An evaluator for one checkpoint: fn(params [N], state [N]) ->
     (final State, alive [N], length [N], return [N]) on `device`. The weights
-    are flattened and moved to the device once."""
+    are flattened and moved to the device once. Raises ValueError for a
+    hidden width the kernel is not built for."""
     device = resolve_device(device)
+    check_hidden_width(policy_params)
     weights = flatten_policy(policy_params).to(device)
 
     def run(params: DynamicsParams, state: State):

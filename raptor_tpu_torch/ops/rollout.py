@@ -12,7 +12,8 @@ state; the step they die on counts toward their length.
 
 `rollout_soa` is the kernel's wrapper: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes `rollout_plain`, the same function in plain
-PyTorch. `launches` counts kernel launches.
+PyTorch. `launches` counts kernel launches. The kernel flies each env on a
+team of lanes (`threads_per_env()`).
 """
 
 from __future__ import annotations
@@ -40,6 +41,11 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device)
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def threads_per_env() -> int:
+    """Lanes of a team that fly one env in the rollout kernel (builds it)."""
+    return build.cuda_library().raptor_rollout_threads_per_env()
 
 
 def rollout_plain(

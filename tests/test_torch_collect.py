@@ -100,7 +100,8 @@ def host_collect(lib, weights, ps, ss, n_steps, seed, env_offset, cfg):
     out = torch.empty((n_steps, ops_collect.OUT_CH, n))
     term, init = cfg.termination, cfg.init
     rc = lib.raptor_collect_host(
-        weights.data_ptr(), ps.data_ptr(), ss.data_ptr(), out.data_ptr(), n, n_steps, cfg.dt,
+        weights.data_ptr(), ps.data_ptr(), ss.data_ptr(), out.data_ptr(), n, n_steps,
+        ops_eval.hidden_width(weights), cfg.dt,
         float(cfg.episode_length), term.position_bound, term.linear_velocity_bound,
         term.angular_velocity_bound, init.position_range, init.max_angle, init.angle_power,
         init.linear_velocity_std, init.angular_velocity_std, int(init.rpm_at_hover), seed,
@@ -334,9 +335,12 @@ def test_wrapper_rejects_bad_inputs(pallas_runs, student, fault):
 
 def test_fused_collect_rejects_other_widths(pallas_runs):
     tcfg, _, _, ps, ss, _, _ = pallas_runs["no_reset"]
-    wide = network.init_params(torch.Generator().manual_seed(0), hidden_dim=24)
-    with pytest.raises(ValueError, match="hidden width 16"):
+    wide = network.init_params(torch.Generator().manual_seed(0), hidden_dim=20)
+    with pytest.raises(ValueError, match=r"hidden widths \(8, 16, 24, 32, 48\)"):
         ops_collect.make_fused_collect(wide, 4, tcfg, device="cpu")
+    for hidden in (8, 24, 32, 48):  # the widths the kernel is built for
+        built = network.init_params(torch.Generator().manual_seed(0), hidden_dim=hidden)
+        ops_collect.make_fused_collect(built, 4, tcfg, device="cpu")
 
 
 def test_cpu_call_runs_plain_without_counting(pallas_runs, student):

@@ -15,6 +15,10 @@ resets, reset masks equal on >= 99.9 % of entries under truncation, and
 observations within 1e-5 where every row is a fresh draw of the in-kernel
 PRNG; the same at widths that are no multiple of the warp size (37, and the
 944 and 5,528 envs of a distillation round and of the 691-teacher union).
+The rollout and eval kernels fly an env on a team of lanes: they are held at
+those env counts and at 16,384 (ragged teams and warps), and the eval kernel
+at every hidden width it is built for, the collect kernel at width 32, with
+students whose biases and h0 are drawn too.
 """
 
 import pytest
@@ -27,6 +31,7 @@ from raptor_tpu_torch.env.types import DynamicsParams
 from raptor_tpu_torch.ops import collect as ops_collect
 from raptor_tpu_torch.ops import eval as ops_eval
 from raptor_tpu_torch.ops import rollout as ops_rollout
+from raptor_tpu_torch.policy import network
 
 N = 4096
 NPZ = "raptor_tpu_torch/data/student_rateFlagCurMix.npz"
@@ -78,6 +83,93 @@ def test_eval_kernel_matches_plain(inputs):
     assert 0 < int(stats[0].sum()) < N  # some envs terminated, some flew on
     torch.testing.assert_close(stats[2][agree], ref_stats[2][agree], atol=5e-3, rtol=1e-3)
     torch.testing.assert_close(out[0:3][:, agree], ref_out[0:3][:, agree], atol=1e-3, rtol=0)
+
+
+def population(card, n, seed):
+    """n random airframes and default initial states on the card."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    frames = sample_population(g, n)
+    return frames.to_soa(), L2F(EnvConfig()).reset(frames, g)[0].dynamics.to_soa()
+
+
+def student(card, hidden, seed=0):
+    """A student of a hidden width from a seed, its biases and h0 drawn from
+    N(0, 0.1) (init_params leaves them at 0)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    p = network.init_params(g, hidden_dim=hidden)
+    for layer, name in (("dense_0", "biases"), ("gru_1", "biases_input"),
+                        ("gru_1", "biases_hidden"), ("gru_1", "initial_hidden_state"),
+                        ("dense_2", "biases")):
+        p[layer][name].add_(0.1 * torch.randn(p[layer][name].shape, device=card, generator=g))
+    return p
+
+
+def assert_eval_agrees(got, want, n):
+    (out, stats), (ref_out, ref_stats) = got, want
+    agree = (stats[0] == ref_stats[0]) & (stats[1] == ref_stats[1])
+    assert int(agree.sum()) >= 0.999 * n
+    torch.testing.assert_close(stats[2][agree], ref_stats[2][agree], atol=5e-3, rtol=1e-3)
+    torch.testing.assert_close(out[0:3][:, agree], ref_out[0:3][:, agree], atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 944, 5528, 16384])
+def test_rollout_kernel_matches_plain_at_ragged_widths(card, n):
+    ps, ss = population(card, n, n)
+    act = torch.tensor([0.1, -0.05, 0.02, 0.0], device=card)[:, None].expand(4, n).contiguous()
+    out, stats = ops_rollout.rollout_soa(ps, ss, act, 20, **OFF)
+    ref_out, ref_stats = ops_rollout.rollout_plain(ps, ss, act, 20, **OFF)
+    torch.cuda.synchronize()
+    assert ops_rollout.threads_per_env() >= 1
+    torch.testing.assert_close(stats, ref_stats, atol=0, rtol=0)
+    torch.testing.assert_close(out, ref_out, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 944, 5528, 16384])
+def test_eval_kernel_matches_plain_at_ragged_widths(inputs, card, n):
+    policy, weights = inputs[3], inputs[4]
+    ps, ss = population(card, n, n)
+    got = ops_eval.eval_soa(weights, ps, ss, 25)
+    want = ops_eval.eval_plain(policy, ps, ss, 25)
+    torch.cuda.synchronize()
+    assert ops_eval.threads_per_env() > 1
+    assert_eval_agrees(got, want, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [8, 16, 24, 32, 48])
+def test_eval_kernel_matches_plain_at_hidden_width(inputs, card, hidden):
+    ps, ss = inputs[0], inputs[1]
+    policy = student(card, hidden)
+    weights = ops_eval.flatten_policy(policy)
+    before = ops_eval.launches
+    got = ops_eval.eval_soa(weights, ps, ss, 25)
+    want = ops_eval.eval_plain(policy, ps, ss, 25)
+    torch.cuda.synchronize()
+    assert ops_eval.launches == before + 1
+    assert 0 < int(got[1][0].sum()) < N  # some envs terminated, some flew on
+    assert_eval_agrees(got, want, N)
+
+
+@pytest.mark.cuda
+def test_collect_kernel_matches_plain_at_hidden_width_32(inputs, card):
+    ps = inputs[0]
+    policy = student(card, 32)
+    weights = ops_collect.flatten_policy(policy)
+    state = L2F(GENTLE).sample_state(
+        DynamicsParams.from_soa(ps), torch.Generator(device=card).manual_seed(2)).to_soa()
+    obs, reset = ops_collect.collect_soa(weights, ps, state, 20, 3, 0, GENTLE)
+    ref_obs, ref_reset = ops_collect.collect_plain(policy, ps, state, 20, 3, 0, GENTLE)
+    torch.cuda.synchronize()
+    assert float(ref_reset.sum()) == 0.0
+    torch.testing.assert_close(reset, ref_reset, atol=0, rtol=0)
+    torch.testing.assert_close(obs, ref_obs, atol=2e-4, rtol=0)
+    config = EnvConfig(episode_length=1)  # every row from 1 on is a fresh draw
+    obs, reset = ops_collect.collect_soa(weights, ps, state, 10, 5, 0, config)
+    ref_obs, ref_reset = ops_collect.collect_plain(policy, ps, state, 10, 5, 0, config)
+    torch.testing.assert_close(obs, ref_obs, atol=1e-5, rtol=0)
+    assert ops_collect.threads_per_env(32) == 1
 
 
 @pytest.mark.cuda
@@ -222,6 +314,11 @@ def test_wrappers_reject_mixed_devices(inputs):
         ops_eval.eval_soa(weights.cpu(), ps, ss, 1)
     with pytest.raises(ValueError):
         ops_collect.collect_soa(weights, ps.cpu(), ss, 1, 0)
+    wide = ops_eval.flatten_policy(student(ss.device, 20))  # a width that is not built
+    with pytest.raises(ValueError, match="hidden widths"):
+        ops_eval.eval_soa(wide, ps, ss, 1)
+    with pytest.raises(ValueError, match="hidden widths"):
+        ops_collect.collect_soa(wide, ps, ss, 1, 0)
 
 
 @pytest.mark.cuda

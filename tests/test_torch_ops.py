@@ -9,6 +9,8 @@ kernels and to each other.
   g++ through `csrc/host_shim.cpp`, against the plain versions: the
   arithmetic the CUDA kernels run, checked off the card.
 - The select-based freeze: a NaN state ends its env and touches no other.
+- A team of lanes cannot split: near the termination boundary alive, length
+  and every state row agree with the plain version.
 """
 
 import shutil
@@ -25,10 +27,12 @@ from raptor_tpu.env import sample_population as jsample
 from raptor_tpu.ops import pallas_eval, pallas_rollout
 from raptor_tpu_torch.checkpoint import dynamics_params_from_numpy, from_numpy, h5
 from raptor_tpu_torch.checkpoint import state_from_numpy
+from raptor_tpu_torch.env import dynamics
 from raptor_tpu_torch.env.types import DynamicsParams, State
 from raptor_tpu_torch.ops import build
 from raptor_tpu_torch.ops import eval as ops_eval
 from raptor_tpu_torch.ops import rollout as ops_rollout
+from raptor_tpu_torch.policy import network
 
 N = 128
 NPZ = "raptor_tpu_torch/data/student_rateFlagCurMix.npz"
@@ -73,11 +77,13 @@ def host_rollout(lib, ps, ss, act, n_steps, pos_bound=0.6, linvel_bound=1000.0,
     return out, stats
 
 
-def host_eval(lib, weights, ps, ss, n_steps):
+def host_eval(lib, weights, ps, ss, n_steps, pos_bound=0.6):
     out, stats = torch.empty_like(ss), torch.empty((3, ss.shape[1]))
-    lib.raptor_eval_host(weights.data_ptr(), ps.data_ptr(), ss.data_ptr(), out.data_ptr(),
-                         stats.data_ptr(), ss.shape[1], n_steps, 0.01, 0.6, 1000.0, 35.0,
-                         *ops_eval._reward_args(ops_eval.RewardConfig()))
+    rc = lib.raptor_eval_host(weights.data_ptr(), ps.data_ptr(), ss.data_ptr(), out.data_ptr(),
+                              stats.data_ptr(), ss.shape[1], n_steps,
+                              ops_eval.hidden_width(weights), 0.01, pos_bound, 1000.0, 35.0,
+                              *ops_eval._reward_args(ops_eval.RewardConfig()))
+    assert rc == 0
     return out, stats
 
 
@@ -185,6 +191,47 @@ def test_nan_state_ends_its_env_only(batch, policy, request, impl, kernel):
     others = np.arange(N) != 3
     np.testing.assert_array_equal(out[:, others].numpy(), ref_out[:, others].numpy())
     np.testing.assert_array_equal(stats[:, others].numpy(), ref_stats[:, others].numpy())
+
+
+@pytest.mark.parametrize("kernel", ["rollout", "eval"])
+def test_team_cannot_split_at_the_termination_boundary(batch, policy, host, kernel):
+    """Every env starts level, at rest, 0.5 to 11.5 mm inside the position
+    bound and flying out of it at 0.1 to 0.4 m/s, so it crosses the bound
+    within a few steps. The team's done flag comes from one lane: alive,
+    length and all 17 state rows (the rotor rows come from the lanes that own
+    the rotors) must equal the plain version's."""
+    _, _, ps, ss = batch
+    edge = ss.clone()
+    k = torch.arange(N, dtype=torch.float32)
+    edge[0:3] = 0.0
+    edge[0] = 0.6 - 1e-3 * ((k * 0.618) % 1.0 * 11.0 + 0.5)
+    edge[3:7] = torch.tensor([1.0, 0.0, 0.0, 0.0])[:, None]
+    edge[7:13] = 0.0
+    edge[7] = 0.1 + 0.3 * ((k * 0.414) % 1.0)
+    steps = 40
+    if kernel == "rollout":
+        hover = dynamics.hover_action(DynamicsParams.from_soa(ps))
+        act = hover[None].expand(4, N).contiguous()
+        got = host_rollout(host, ps, edge, act, steps)
+        want = ops_rollout.rollout_plain(ps, edge, act, steps)
+    else:
+        got = host_eval(host, ops_eval.flatten_policy(policy[1]), ps, edge, steps)
+        want = ops_eval.eval_plain(policy[1], ps, edge, steps)
+    np.testing.assert_array_equal(got[1][:2].numpy(), want[1][:2].numpy())
+    assert float(got[1][0].sum()) == 0.0 and float(got[1][1].max()) < steps
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=2e-4, rtol=1e-3)
+
+
+def test_fused_eval_rejects_other_widths(batch):
+    _, _, ps, ss = batch
+    wide = network.init_params(torch.Generator().manual_seed(0), hidden_dim=20)
+    with pytest.raises(ValueError, match=r"hidden widths \(8, 16, 24, 32, 48\)"):
+        ops_eval.make_fused_policy_eval(wide, 4, device="cpu")
+    with pytest.raises(ValueError, match=r"hidden widths \(8, 16, 24, 32, 48\)"):
+        ops_eval.eval_soa(ops_eval.flatten_policy(wide), ps, ss, 4)
+    # eval_plain serves any width
+    stats = ops_eval.eval_plain(wide, ps, ss, 4)[1]
+    assert stats.shape == (3, N) and bool(torch.isfinite(stats).all())
 
 
 def test_wrappers_run_plain_on_cpu_without_counting(batch, policy):
