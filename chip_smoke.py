@@ -11,7 +11,8 @@ with a non-zero exit code and no result line:
 2. build the CUDA kernels from `raptor_tpu_torch/csrc/` (nvcc, one process per
    unit, all in parallel: the eval and collect sources once a hidden width)
    and print each unit's seconds, ptxas' register and spill counts of every
-   kernel and the lanes a team of the rollout and eval kernels;
+   kernel and the lanes a team of the rollout, eval and collect kernels
+   (`COLLECT_TEAM`);
 3. rollout kernel vs its plain PyTorch version on N = 16,384 random airframes:
    20 steps with termination off (atol 2e-4, rtol 1e-3 on every state field),
    then 512 steps at hover with default bounds (finite, |q| = 1 +- 1e-5);
@@ -76,8 +77,9 @@ with a non-zero exit code and no result line:
    the launch counts read from 0 right after it (the farm is eager PyTorch
    and must launch no kernel). Then `apps.post_training.main` distills that manifest for one tiny round;
 12. time each kernel and its plain version at the main-path shapes (CUDA
-   events, median of 5 after a warm-up; 3 for the collect's plain version)
-   and print one `{"kernels": [...]}` line with the launches of phases 5, 7
+   events, median of 5 after a warm-up; 3 for the collect's plain version),
+   the collect kernel also at a distillation round's 944 envs, and print one
+   `{"kernels": [...]}` line with the launches of phases 5, 7
    and 9 (`launches`), those of the bench's processes in phase 10
    (`bench_launches`), the lanes that fly one env (`threads_per_env`), error,
    times and the bound;
@@ -229,7 +231,8 @@ def main() -> int:
     threads_per_env = {"rollout": ops_rollout.threads_per_env(),
                        "eval": ops_eval.threads_per_env(),
                        "collect": ops_collect.threads_per_env()}
-    print(f"lanes an env: {threads_per_env}")
+    print(f"lanes an env: {threads_per_env}; collect kernel: COLLECT_TEAM = "
+          f"{threads_per_env['collect']}")
     sass = build.cuda_sass_counts("fma_peak_kernelILi32E")
     if sass is None:
         print("sass: cuobjdump not found beside nvcc, the FFMA count of fma_peak_kernel<32> "
@@ -649,6 +652,9 @@ def main() -> int:
     c_ps = flatten_envs(env_params).to_soa()
     c_ss = L2F(EnvConfig()).sample_state(flatten_envs(env_params), gen).to_soa()
     n_c = c_ps.shape[1]
+    r_ps = flatten_envs(sub_params).to_soa()  # a distillation round's 944 envs
+    r_ss = L2F(EnvConfig()).sample_state(flatten_envs(sub_params), gen).to_soa()
+    n_r = r_ps.shape[1]
 
     rows = []
     specs = (
@@ -697,6 +703,17 @@ def main() -> int:
     off_bound = FLOPS_ROLLOUT_STEP * N * T_ROLLOUT / peak_flops * 1e3
     print(f"rollout, termination off: kernel {off_ms:.3f} ms, bound {off_bound:.4f} ms "
           f"({N * T_ROLLOUT} env-steps, {sku} peaks)")
+
+    # the collect kernel at a distillation round's shape: fewer envs, fewer warps
+    r_resets = float(ops_collect.collect_soa(weights, r_ps, r_ss, T_COLLECT, 0)[1].sum())
+    r_ms = time_ms(torch, lambda: ops_collect.collect_soa(weights, r_ps, r_ss, T_COLLECT, 0))
+    r_ops = (FLOPS_COLLECT_STEP * n_r * T_COLLECT + FLOPS_COLLECT_RESET * r_resets) / peak_flops
+    r_bytes = ((42 + 17) * 4 * n_r + weights.numel() * 4 + 23 * 4 * n_r * T_COLLECT) / peak_bytes
+    collect_row = next(row for row in rows if row["name"] == "collect")
+    collect_row.update(ms_944=r_ms, bound_ms_944=max(r_ops, r_bytes) * 1e3)
+    print(f"collect, {n_r} envs (COLLECT_TEAM = {threads_per_env['collect']}): kernel "
+          f"{r_ms:.3f} ms, bound {max(r_ops, r_bytes) * 1e3:.4f} ms ({n_r * T_COLLECT} env-steps, "
+          f"{r_resets:.0f} resets, {sku} peaks)")
 
     # the wrapper hands out obs [T, N, 22] as a view of the kernel's
     # channel-major buffer; a caller that needs it dense pays this transpose

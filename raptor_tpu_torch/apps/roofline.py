@@ -3,7 +3,8 @@
 Counterpart of `raptor_tpu/apps/roofline.py`. Two measurements, one report:
 
 1. **Useful work per env-step**: FP32 operations and special-function calls
-   counted by hand from `csrc/quad_step.cuh` and `env/quad.py` (`flop_counts`).
+   counted by hand from `csrc/team_step.cuh`, `csrc/quad_step.cuh` and
+   `env/quad.py` (`flop_counts`).
    PyTorch has no cost analysis for elementwise work, so where the JAX report
    asks XLA, this one states its counts, under the same keys. The kernels'
    bounds in `chip_smoke.py` use the same constants.
@@ -51,8 +52,13 @@ from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
 # "transcendentals", and are not in the operation counts.
 # ---------------------------------------------------------------------------
 
-# csrc/quad_step.cuh: derivative 210, so one RK4 step = 4 x 210 + 3 stage
-# updates (34 + 68 + 68) + combination 51 + renormalize 13 + rpm clip 8.
+# One derivative is 210 in the term-for-term form of pallas_rollout.py:134-193
+# (csrc/team_step.cuh: team_derivative's thrusts and wrench, body_derivative,
+# the rotor lag), so one RK4 step = 4 x 210 + 3 stage updates (34 + 68 + 68) +
+# combination 51 + renormalize 13 + rpm clip 8. The team code forms the torque
+# from per-rotor coefficients computed once an episode, which saves some of
+# these; the counts stay the work of an env-step, and lanes that repeat work
+# are not counted twice.
 FLOPS_RK4_STEP = 4 * 210 + (34 + 68 + 68) + 51 + 13 + 8
 SFU_RK4_STEP = 1  # the renormalization's square root
 FLOPS_TERMINATION = 20

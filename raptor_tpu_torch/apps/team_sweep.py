@@ -1,23 +1,31 @@
-"""Time the eval (B2) and rollout (B1) kernels at several team sizes on one GPU:
+"""Time the rollout (B1), eval (B2) and collect (B3) kernels at several team
+sizes on one GPU:
 
     python -m raptor_tpu_torch.apps.team_sweep [--sizes 1 2 4 8] [--policy-only] [--out sweep.json]
 
 The lanes that fly one env are compile-time constants of `csrc/team_step.cuh`
-(`EVAL_TEAM`, `ROLLOUT_TEAM`); the port has no runtime switch for them. For
-each size K this script copies the package into `build/team_sweep/K<K>/`
-beside the package, sets both constants to K in the copy's header (and builds
-the copy's eval and collect kernels at hidden width 16 only, to keep the
-build short), and runs one process there that builds the copy's kernels,
-holds them against their plain versions and times them at `chip_smoke.py`'s
-main-path shapes. K = 1 is the team code on one lane: no exchange, the
-parameters in registers, the work of one env in one thread.
+(`ROLLOUT_TEAM`, `EVAL_TEAM`, `COLLECT_TEAM`); the port has no runtime switch
+for them. For each size K this script copies the package into
+`build/team_sweep/K<K>/` beside the package, sets all three constants to K in
+the copy's header (and builds the copy's eval and collect kernels at hidden
+width 16 only, to keep the build short), and runs one process there that
+builds the copy's kernels, holds them against their plain versions and times
+them at `chip_smoke.py`'s main-path shapes. K = 1 is the team code on one
+lane: no exchange, the parameters in registers, the work of one env in one
+thread.
 - rollout: N = 16,384 random airframes, 20 steps with termination off (state
   within atol 2e-4 / rtol 1e-3, alive and length equal); timed at T = 512 with
   termination off and at hover with the default bounds;
 - eval: the committed student, N = 2,048 airframes x 8 envs from the
   eval-parity init, 25 steps against the plain version (alive and length equal
   on >= 99.9 % of envs, return within 5e-3 / 1e-3, position within 1e-3);
-  timed at T = 500.
+  timed at T = 500;
+- collect: the committed student on N = 5,528 random airframes (the envs of
+  the 691-teacher union), 20 steps against the plain version at
+  `chip_smoke.py` phase 6's tolerances (gentle starts inside wide bounds:
+  reset masks equal and all zero, observations within 2e-4; a reset after
+  every step: observations within 1e-5); timed at T = 500 from the default
+  init at N = 5,528 and at N = 944 (the envs of a distillation round).
 `--policy-only` times the eval kernel with its physics taken out of the
 copy: the RK4 step is replaced by holding the state (and taking the rpm
 setpoints as the rotor state), so every env flies all T steps of the policy's
@@ -42,7 +50,8 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parents[1]
 SWEEP_DIR = PACKAGE.parent / "build" / "team_sweep"
 N = 16_384
-T_ROLLOUT, T_EVAL = 512, 500
+N_COLLECT, N_ROUND = 5_528, 944  # the 691-teacher union's envs, a distillation round's
+T_ROLLOUT, T_EVAL, T_COLLECT = 512, 500, 500
 RK4_IN_EVAL = "    team_rk4(tm, lp, s, u, sp, dt, s2, u2);\n#pragma unroll\n    for (int j = 0; j < N; ++j) {\n      ret[j]"
 HOLD_IN_EVAL = (
     "#pragma unroll\n    for (int j = 0; j < N; ++j) {\n"
@@ -79,19 +88,22 @@ def _ptxas(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.setdefault(name, [None, 0])[0] = int(m.group(1))
-    return {k: v for k, v in out.items() if "rollout" in k or "eval" in k}
+    return {k: v for k, v in out.items() if "rollout" in k or "eval" in k or "collect" in k}
 
 
 def worker(policy_only: bool = False) -> dict:
-    """Build, check and time this package's rollout and eval kernels (the eval
-    left unchecked where its physics was taken out)."""
+    """Build, check and time this package's rollout, eval and collect kernels
+    (the eval left unchecked where its physics was taken out)."""
     import torch
 
     from raptor_tpu_torch.checkpoint import from_numpy, h5
-    from raptor_tpu_torch.env import EnvConfig, L2F, dynamics, eval_parity_init
+    from raptor_tpu_torch.env import (
+        EnvConfig, InitConfig, L2F, TerminationConfig, dynamics, eval_parity_init,
+    )
     from raptor_tpu_torch.env.randomization import sample_population
     from raptor_tpu_torch.env.types import tree_map
     from raptor_tpu_torch.ops import build
+    from raptor_tpu_torch.ops import collect as ops_collect
     from raptor_tpu_torch.ops import eval as ops_eval
     from raptor_tpu_torch.ops import rollout as ops_rollout
 
@@ -123,16 +135,46 @@ def worker(policy_only: bool = False) -> dict:
         torch.testing.assert_close(stats[2][agree], ref_stats[2][agree], atol=5e-3, rtol=1e-3)
         torch.testing.assert_close(out[0:3][:, agree], ref_out[0:3][:, agree], atol=1e-3, rtol=0)
 
+    # collect: phase 6's checks (a) and (c), then the main-path shapes
+    gentle = EnvConfig(
+        init=InitConfig(max_angle=0.2, linear_velocity_std=0.02, angular_velocity_std=0.02),
+        termination=TerminationConfig(position_bound=50.0, angular_velocity_bound=1000.0))
+    c_frames = sample_population(torch.Generator(device=dev).manual_seed(5), N_COLLECT)
+    c_ps = c_frames.to_soa()
+    c_gen = torch.Generator(device=dev).manual_seed(6)
+    gentle_ss = L2F(gentle).sample_state(c_frames, c_gen).to_soa()
+    (obs, reset), (ref_obs, ref_reset) = (
+        ops_collect.collect_soa(weights, c_ps, gentle_ss, 20, 3, 0, gentle),
+        ops_collect.collect_plain(policy, c_ps, gentle_ss, 20, 3, 0, gentle))
+    assert float(ref_reset.sum()) == 0.0
+    torch.testing.assert_close(reset, ref_reset, atol=0, rtol=0)
+    torch.testing.assert_close(obs, ref_obs, atol=2e-4, rtol=0)
+    c_ss = L2F(EnvConfig()).sample_state(c_frames, c_gen).to_soa()
+    every = EnvConfig(episode_length=1)
+    (obs, reset), (ref_obs, ref_reset) = (
+        ops_collect.collect_soa(weights, c_ps, c_ss, 10, 5, 0, every),
+        ops_collect.collect_plain(policy, c_ps, c_ss, 10, 5, 0, every))
+    assert float(reset.min()) == 1.0 and float(ref_reset.min()) == 1.0
+    torch.testing.assert_close(obs, ref_obs, atol=1e-5, rtol=0)
+    r_frames = sample_population(torch.Generator(device=dev).manual_seed(7), N_ROUND)
+    r_ps = r_frames.to_soa()
+    r_ss = L2F(EnvConfig()).sample_state(r_frames, c_gen).to_soa()
+
     return {
         "policy_only": policy_only,
         "rollout_lanes": ops_rollout.threads_per_env(),
         "eval_lanes": ops_eval.threads_per_env(),
+        "collect_lanes": ops_collect.threads_per_env(),
         "rollout_off_ms": _time_ms(
             torch, lambda: ops_rollout.rollout_soa(ps, ss, hover, T_ROLLOUT, **off)),
         "rollout_hover_ms": _time_ms(
             torch, lambda: ops_rollout.rollout_soa(ps, ss, hover, T_ROLLOUT)),
         "eval_ms": _time_ms(torch, lambda: ops_eval.eval_soa(weights, m_ps, m_ss, T_EVAL)),
         "eval_env_steps": float(ops_eval.eval_soa(weights, m_ps, m_ss, T_EVAL)[1][1].sum()),
+        "collect_ms": _time_ms(
+            torch, lambda: ops_collect.collect_soa(weights, c_ps, c_ss, T_COLLECT, 0)),
+        "collect_944_ms": _time_ms(
+            torch, lambda: ops_collect.collect_soa(weights, r_ps, r_ss, T_COLLECT, 0)),
         "ptxas": _ptxas(build.cuda_build_log()),
     }
 
@@ -159,8 +201,10 @@ def main(argv=None) -> dict:
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(PACKAGE, root / PACKAGE.name,
                         ignore=shutil.ignore_patterns("__pycache__"))
-        text = re.sub(r"constexpr int (EVAL|ROLLOUT)_TEAM = \d+;",
-                      lambda m: f"constexpr int {m.group(1)}_TEAM = {k};", header)
+        text, n_set = re.subn(r"constexpr int (EVAL|ROLLOUT|COLLECT)_TEAM = \d+;",
+                              lambda m: f"constexpr int {m.group(1)}_TEAM = {k};", header)
+        if n_set != 3:
+            raise RuntimeError(f"found {n_set} of the 3 team constants in team_step.cuh")
         if args.policy_only:
             if text.count(RK4_IN_EVAL) != 1:
                 raise RuntimeError("the eval loop's RK4 step was not found in team_step.cuh")

@@ -2,10 +2,10 @@
 // on the CPU, with the same C interface as rollout.cu, eval.cu and collect.cu
 // minus the stream, plus the collect kernel's PRNG and sampler on arrays of
 // counters and the FMA peak probe's chain (fma_chain.cuh) on an array. The
-// eval and rollout kernels' teams run as HostTeam: the K lanes of a team in
-// one thread, phase by phase between the exchanges. Built with g++ so the CPU
-// tests can hold the arithmetic the kernels run to the JAX package and to the
-// plain PyTorch versions.
+// kernels' teams run as HostTeam: the K lanes of a team in one thread, phase
+// by phase between the exchanges. Built with g++ so the CPU tests can hold the
+// arithmetic the kernels run to the JAX package and to the plain PyTorch
+// versions.
 #include <vector>
 
 #include "fma_chain.cuh"
@@ -44,14 +44,18 @@ int eval_host(const float* weights, const float* params, const float* state,
   return 0;
 }
 
-template <int H>
+template <int H, int K>
 int collect_host(const float* weights, const float* params, const float* state,
                  float* out, int n, int n_steps, float dt, float episode_length,
                  raptor::Bounds b, raptor::InitSpec init, unsigned int seed,
                  unsigned int env_offset) {
+  std::vector<raptor::Vec4> wt(raptor::TeamLayout<H, K>::FLOATS / 4);
+  raptor::stage_team_weights<H, K>(weights, &wt[0].x, 0, 1);
+  const raptor::HostTeam<K> tm;
   for (long i = 0; i < n; ++i) {
-    raptor::collect_env<H>(i, n, weights, params, state, out, n_steps, dt,
-                           episode_length, b, init, seed, env_offset);
+    raptor::team_collect_env<raptor::HostTeam<K>, H>(
+        tm, i, n, wt.data(), weights, params, state, out, n_steps, dt,
+        episode_length, b, init, seed, env_offset);
   }
   return 0;
 }
@@ -92,10 +96,40 @@ extern "C" int raptor_collect_host(const float* weights, const float* params,
   const raptor::InitSpec init{position_range,      max_angle,
                               angle_power,         linear_velocity_std,
                               angular_velocity_std, rpm_at_hover};
-#define RAPTOR_RUN(H)                                                       \
-  return collect_host<H>(weights, params, state, out, n, n_steps, dt,        \
-                         episode_length, b, init, seed, env_offset)
+#define RAPTOR_RUN(H)                                                    \
+  return collect_host<H, raptor::COLLECT_TEAM>(weights, params, state, out, \
+                                               n, n_steps, dt, episode_length, \
+                                               b, init, seed, env_offset)
   RAPTOR_HIDDEN_DISPATCH(hidden, RAPTOR_RUN)
+#undef RAPTOR_RUN
+}
+
+// raptor_collect_host at hidden width 16 on a team of `team` lanes (1, 2, 4
+// or 8, the sizes apps/team_sweep.py measures), whatever COLLECT_TEAM is; -1
+// for another team size
+extern "C" int raptor_collect_team_host(const float* weights, const float* params,
+                                        const float* state, float* out, int n,
+                                        int n_steps, int team, float dt,
+                                        float episode_length, float pos_bound,
+                                        float linvel_bound, float angvel_bound,
+                                        float position_range, float max_angle,
+                                        float angle_power, float linear_velocity_std,
+                                        float angular_velocity_std, int rpm_at_hover,
+                                        unsigned int seed, unsigned int env_offset) {
+  const raptor::Bounds b{pos_bound, linvel_bound, angvel_bound};
+  const raptor::InitSpec init{position_range,      max_angle,
+                              angle_power,         linear_velocity_std,
+                              angular_velocity_std, rpm_at_hover};
+#define RAPTOR_RUN(K)                                                      \
+  return collect_host<16, K>(weights, params, state, out, n, n_steps, dt, \
+                             episode_length, b, init, seed, env_offset)
+  switch (team) {
+    case 1: RAPTOR_RUN(1);
+    case 2: RAPTOR_RUN(2);
+    case 4: RAPTOR_RUN(4);
+    case 8: RAPTOR_RUN(8);
+    default: return -1;
+  }
 #undef RAPTOR_RUN
 }
 

@@ -1,6 +1,7 @@
-// One env flown by a team of K lanes of one warp: the per-env step of the
-// eval (eval.cu) and rollout (rollout.cu) kernels, shared with the host shim
-// (host_shim.cpp) that the CPU tests build with g++.
+// One env flown by a team of K lanes of one warp: the per-env loops of the
+// rollout (rollout.cu), eval (eval.cu) and collect (collect.cu) kernels, shared
+// with the host shim (host_shim.cpp) that the CPU tests build with g++. The
+// one copy of the physics of all three is body_derivative and team_rk4.
 //
 // How the work of an env-step is split over the team:
 // - policy, by hidden unit: lane l owns units l*H/K .. (l+1)*H/K - 1 (their
@@ -29,22 +30,25 @@
 // every lane (a + b == b + a in IEEE arithmetic), and `done` is broadcast from
 // lane 0, so a team cannot split.
 //
-// Sums differ in order from the one-thread code: the 4 actions add the lanes'
+// Sums differ in order from the Pallas kernels: the 4 actions add the lanes'
 // partial sums in a butterfly, then the bias; the torque is the sum of each
-// rotor's thrust times its coefficient r x d + s kappa d, where the one-thread
-// code adds r x (t d) and s kappa t d term by term.
+// rotor's thrust times its coefficient r x d + s kappa d, where
+// pallas_rollout.py:134-193 adds r x (t d) and s kappa t d term by term.
 #pragma once
 
 #include "quad_step.cuh"
 
 namespace raptor {
 
-// Lanes an env of the eval and the rollout kernel, chosen by measurement over
-// 1, 2, 4 and 8 (apps/team_sweep.py, PERF.md); compile-time, one value a build.
-// The rollout flies fastest on one lane: a team of one exchanges nothing and
-// keeps only the parameters in registers.
+// Lanes an env of the eval, the rollout and the collect kernel, chosen by
+// measurement over 1, 2, 4 and 8 (apps/team_sweep.py, PERF.md); compile-time,
+// one value a build. The rollout flies fastest on one lane: a team of one
+// exchanges nothing and keeps only the parameters in registers. The collect,
+// with a few thousand envs or fewer, flies fastest on four: there the warps
+// in flight, not the weights' shared-memory traffic, set its time.
 constexpr int EVAL_TEAM = 2;
 constexpr int ROLLOUT_TEAM = 1;
+constexpr int COLLECT_TEAM = 4;
 
 constexpr int COMMON = 13;  // p(3) q(4) v(3) w(3): the state every lane holds
 
@@ -200,8 +204,8 @@ RAPTOR_HD float lane_setpoint(const LaneParams& lp, float action) {
   return lp.rpm_min + (clip(action, -1.f, 1.f) + 1.f) * 0.5f * (lp.rpm_max - lp.rpm_min);
 }
 
-// d/dt of p, q, v, w under the summed wrench f (quad_step.cuh `derivative`,
-// pallas_rollout.py:134-193 term for term)
+// d/dt of p, q, v, w under the summed wrench f (pallas_rollout.py:134-193
+// term for term)
 RAPTOR_HD void body_derivative(const LaneParams& lp, const float* s,
                                const float* f, float* d) {
   const float qw = s[3], qx = s[4], qy = s[5], qz = s[6];
@@ -267,7 +271,7 @@ RAPTOR_HD void team_derivative(const Team& tm, const LaneParams (&lp)[Team::N],
 }
 
 // One RK4 step of the team, then quaternion renormalize and rpm clip to
-// [0, rpm_max] (quad_step.cuh `rk4_step`).
+// [0, rpm_max] (pallas_rollout.py:220-238).
 template <class Team, int R>
 RAPTOR_HD void team_rk4(const Team& tm, const LaneParams (&lp)[Team::N],
                         const float (&s)[Team::N][COMMON],
@@ -628,6 +632,144 @@ RAPTOR_HD void team_eval_env(const Team& tm, long i, long n, const Vec4* Wt,
     if (l < S::RL) {
 #pragma unroll
       for (int k = 0; k < R; ++k) state_out[(COMMON + S::rotor(l, k)) * n + i] = u[j][k];
+    }
+  }
+}
+
+constexpr int COLLECT_CH = OBS + 1;  // 22 observation channels + done flag
+
+// Env i of n, flown by the team `tm`: n_steps closed-loop steps of the student
+// with auto-reset (pallas_collect.py:291-359). Wt is the team layout of the
+// weights, W the flat layout (for h0). out is channel-major [n_steps, 23, n]:
+// row t holds the observation before step t (channels 0-21; lane l stores the
+// channels c with c % K == l, every lane holds the whole observation) and the
+// done flag after it (channel 22, from lane 0). On done (the full termination
+// predicate, or the env's own step count reaching episode_length; broadcast
+// from lane 0, so a team cannot split) the whole team takes the reset branch:
+// each lane draws the whole fresh state from (seed, env_offset + i, t), a
+// deterministic counter, and keeps the common state and its own rotors; h and
+// h_own go back to h0, the previous action and the step count to 0. The state
+// is replaced, never blended, so a non-finite terminated state is really
+// gone. The airframe is fixed across resets, so each lane keeps its
+// LaneParams.
+template <class Team, int H>
+RAPTOR_HD void team_collect_env(const Team& tm, long i, long n, const Vec4* Wt,
+                                const float* W, const float* params,
+                                const float* state, float* out, int n_steps,
+                                float dt, float episode_length, Bounds b,
+                                InitSpec init, uint32_t seed, uint32_t env_offset) {
+  constexpr int N = Team::N, K = Team::SIZE;
+  using S = TeamShape<K>;
+  using T = TeamLayout<H, K>;
+  constexpr int R = S::R, U = T::U, W_H0 = Layout<H>::H0;
+  const ParamColumn P{params + i, n};
+  LaneParams lp[N];
+  float s[N][COMMON], u[N][R], sp[N][R], s2[N][COMMON], u2[N][R];
+  float h[N][H], h_new[N][H], h_own[N][U], h_new_own[N][U], x_own[N][U], x[N][H];
+  float prev[N][ACT], act[N][ACT], part[ACT][N];
+  int done[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int l = tm.lane(j);
+    lp[j] = lane_params(P);
+#pragma unroll
+    for (int c = 0; c < COMMON; ++c) s[j][c] = load_ro(state + c * n + i);
+#pragma unroll
+    for (int k = 0; k < R; ++k) u[j][k] = load_ro(state + (COMMON + S::rotor(l, k)) * n + i);
+#pragma unroll
+    for (int c = 0; c < H; ++c) h[j][c] = load_ro(W + W_H0 + c);
+#pragma unroll
+    for (int c = 0; c < U; ++c) h_own[j][c] = load_ro(W + W_H0 + l * U + c);
+#pragma unroll
+    for (int c = 0; c < ACT; ++c) prev[j][c] = 0.f;
+  }
+  const uint32_t env_id = env_offset + static_cast<uint32_t>(i);
+  float tcount = 0.f;
+  for (int t = 0; t < n_steps; ++t) {
+    float* row = out + static_cast<long>(t) * COLLECT_CH * n + i;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int l = tm.lane(j);
+      float obs[OBS];
+      observe22(s[j], prev[j], obs);
+#pragma unroll
+      for (int c = 0; c < OBS; ++c) {
+        if (c % K == l) row[c * n] = obs[c];
+      }
+      dense0_lane<H, K>(Wt, l, obs, x_own[j]);
+    }
+    // the policy as in team_eval_env
+    tm.template gather<U>(x_own, x);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int l = tm.lane(j);
+      gru_lane<H, K>(Wt, l, x[j], h[j], h_own[j], h_new_own[j]);
+#pragma unroll
+      for (int a = 0; a < ACT; ++a) part[a][j] = 0.f;
+#pragma unroll
+      for (int c = 0; c < U; ++c) {
+        const Vec4 w2 = load4(Wt + (T::W2 + c) * K + l);
+        part[0][j] += w2.x * h_new_own[j][c];
+        part[1][j] += w2.y * h_new_own[j][c];
+        part[2][j] += w2.z * h_new_own[j][c];
+        part[3][j] += w2.w * h_new_own[j][c];
+      }
+    }
+    tm.template gather<U>(h_new_own, h_new);
+#pragma unroll
+    for (int a = 0; a < ACT; ++a) tm.template sum<K>(part[a]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int l = tm.lane(j);
+      const Vec4 b2 = load4(Wt + T::B2 * K + l);
+#pragma unroll
+      for (int a = 0; a < ACT; ++a) act[j][a] = clip(comp(b2, a) + part[a][j], -1.f, 1.f);
+#pragma unroll
+      for (int k = 0; k < R; ++k) sp[j][k] = lane_setpoint(lp[j], pick4(act[j], S::rotor(l, k)));
+    }
+    team_rk4(tm, lp, s, u, sp, dt, s2, u2);
+    const float t2 = tcount + 1.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) done[j] = terminated(s2[j], b) || t2 > episode_length - 0.5f;
+    tm.bcast0(done);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (tm.lane(j) == 0) row[OBS * n] = done[j] ? 1.f : 0.f;
+    }
+    if (done[0]) {
+      const uint32_t ctr = reset_counter(env_id, seed, static_cast<uint32_t>(t));
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int l = tm.lane(j);
+        float fresh[N_STATE];
+        sample_state(P, ctr, init, fresh);
+#pragma unroll
+        for (int c = 0; c < COMMON; ++c) s[j][c] = fresh[c];
+#pragma unroll
+        for (int k = 0; k < R; ++k) u[j][k] = pick4(fresh + COMMON, S::rotor(l, k));
+#pragma unroll
+        for (int c = 0; c < H; ++c) h[j][c] = load_ro(W + W_H0 + c);
+#pragma unroll
+        for (int c = 0; c < U; ++c) h_own[j][c] = load_ro(W + W_H0 + l * U + c);
+#pragma unroll
+        for (int c = 0; c < ACT; ++c) prev[j][c] = 0.f;
+      }
+      tcount = 0.f;
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+#pragma unroll
+        for (int c = 0; c < COMMON; ++c) s[j][c] = s2[j][c];
+#pragma unroll
+        for (int k = 0; k < R; ++k) u[j][k] = u2[j][k];
+#pragma unroll
+        for (int c = 0; c < H; ++c) h[j][c] = h_new[j][c];
+#pragma unroll
+        for (int c = 0; c < U; ++c) h_own[j][c] = h_new_own[j][c];
+#pragma unroll
+        for (int a = 0; a < ACT; ++a) prev[j][a] = act[j][a];
+      }
+      tcount = t2;
     }
   }
 }

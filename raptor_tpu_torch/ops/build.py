@@ -149,9 +149,8 @@ def cuda_library() -> ctypes.CDLL:
     `raptor_eval_<H>` and `raptor_collect_<H>` for H in `HIDDEN_WIDTHS`, and
     `raptor_fma_peak` (which also fills an int[3] with its chains a thread,
     block and grid) take a stream last and return cudaGetLastError();
-    `raptor_rollout_threads_per_env` and `raptor_eval_threads_per_env` return
-    the lanes of a team, `raptor_collect_threads_per_env_<H>` the threads of
-    an env."""
+    `raptor_rollout_threads_per_env`, `raptor_eval_threads_per_env` and
+    `raptor_collect_threads_per_env_<H>` return the lanes of a team."""
     units = " ".join(f"{src}{''.join(defs)}" for src, defs in CUDA_UNITS)
     return _load(
         "raptor_cuda", CUDA_SOURCES, (*NVCC_FLAGS, units), _build_cuda,
@@ -199,14 +198,17 @@ def host_library() -> ctypes.CDLL:
     `raptor_eval_host`, `raptor_collect_host`, `raptor_fma_peak_host`: the CUDA
     entry points without the stream (and the geometry), the eval and collect
     ones with the hidden width after n_steps (-1 for one not built);
-    `raptor_hash_host` and `raptor_sample_state_host`: the collect kernel's
-    PRNG and sampler on arrays of counters)."""
+    `raptor_collect_team_host`: the collect at hidden width 16 with the lanes
+    of a team (1, 2, 4 or 8) in the width's place; `raptor_hash_host` and
+    `raptor_sample_state_host`: the collect kernel's PRNG and sampler on
+    arrays of counters)."""
     return _load(
         "raptor_host", (HOST_SOURCE,), GXX_FLAGS, _build_host,
         {
             "raptor_rollout_host": ROLLOUT_ARGS,
             "raptor_eval_host": EVAL_ARGS[:7] + [_I] + EVAL_ARGS[7:],
             "raptor_collect_host": COLLECT_ARGS[:6] + [_I] + COLLECT_ARGS[6:],
+            "raptor_collect_team_host": COLLECT_ARGS[:6] + [_I] + COLLECT_ARGS[6:],
             "raptor_fma_peak_host": FMA_PEAK_ARGS,
             "raptor_hash_host": [_P, _P, _P, _I, _U],
             "raptor_sample_state_host": [_P, _P, _P, _I] + INIT_ARGS,

@@ -15,6 +15,13 @@ whole. Dynamics are deterministic: the per-step disturbance forces of
 `L2F.dynamics_step` are not modelled. Teacher labels are not computed here;
 `distill.post_training.make_relabel` adds them in one batched pass.
 
+The kernel flies each env on a team of `COLLECT_TEAM` lanes of one warp
+(`csrc/team_step.cuh` `team_collect_env`, over the eval kernel's physics and
+split GRU): the policy is split by hidden unit, the rotors by lane, each lane
+stores its share of the observation channels, and the done flag and the
+reset are the team's, from lane 0. `threads_per_env` reads the team's size
+from the build.
+
 `collect_soa` is the kernel's wrapper: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes `collect_plain`, the same function in plain
 PyTorch. `launches` counts kernel launches. The kernel is built for 22
@@ -189,8 +196,8 @@ def collect_plain(
 
 
 def threads_per_env(hidden: int = network.HIDDEN_DIM) -> int:
-    """Threads that fly one env in the collect kernel of this hidden width
-    (builds it)."""
+    """Lanes of a team that fly one env in the collect kernel of this hidden
+    width (builds it)."""
     require_built(hidden)
     return getattr(build.cuda_library(), f"raptor_collect_threads_per_env_{hidden}")()
 

@@ -12,8 +12,14 @@ Pallas collect kernel and to itself.
   atol 2e-4 (the JAX package's own tolerance, tests/test_pallas_collect.py:77)
   up to and including each env's first post-reset row, and within 1e-5 where
   every row is a fresh draw.
-- The kernel's per-env code (`csrc/quad_step.cuh`: `collect_env`), built for
-  the CPU, against `collect_plain`, at the same tolerances.
+- The kernel's per-env code (`csrc/team_step.cuh`: `team_collect_env`, the
+  lanes of a team run phase by phase), built for the CPU, against
+  `collect_plain`, at the same tolerances: on the kernel's own team of
+  `COLLECT_TEAM` lanes, and at hidden width 16 on teams of 1, 2, 4 and 8
+  lanes, so whichever size the card is built with is covered.
+- A team cannot split at a reset: envs that fly out of the position bound
+  reset on the same steps as in `collect_plain`, and each row after a reset
+  is the plain sampler's fresh state.
 - `env_offset`, the select-based reset, the wrapper's checks and its launch
   count.
 """
@@ -36,7 +42,7 @@ from raptor_tpu.ops.pallas_rollout import pack_params
 from raptor_tpu.policy import network as jnetwork
 from raptor_tpu_torch.checkpoint import dynamics_params_from_numpy, from_numpy
 from raptor_tpu_torch.checkpoint import state_from_numpy
-from raptor_tpu_torch.env import EnvConfig, InitConfig, TerminationConfig
+from raptor_tpu_torch.env import EnvConfig, InitConfig, TerminationConfig, maths
 from raptor_tpu_torch.env.types import DynamicsParams
 from raptor_tpu_torch.ops import build
 from raptor_tpu_torch.ops import collect as ops_collect
@@ -45,6 +51,7 @@ from raptor_tpu_torch.policy import network
 
 N = 1024  # one full lane tile of the Pallas kernel: no padded lanes
 T = 20
+TEAMS = [1, 2, 4, 8]  # the lanes an env that apps/team_sweep.py measures
 
 GENTLE = dict(max_angle=0.2, linear_velocity_std=0.02, angular_velocity_std=0.02)
 WIDE = dict(position_bound=50.0, angular_velocity_bound=1000.0)
@@ -95,13 +102,16 @@ def host():
     return build.host_library()
 
 
-def host_collect(lib, weights, ps, ss, n_steps, seed, env_offset, cfg):
+def host_collect(lib, weights, ps, ss, n_steps, seed, env_offset, cfg, team=None):
+    """The host build on the kernel's team (COLLECT_TEAM lanes), or with
+    `team` on a team of that many lanes (hidden width 16 only)."""
     n = ss.shape[1]
     out = torch.empty((n_steps, ops_collect.OUT_CH, n))
     term, init = cfg.termination, cfg.init
-    rc = lib.raptor_collect_host(
+    fn = lib.raptor_collect_host if team is None else lib.raptor_collect_team_host
+    rc = fn(
         weights.data_ptr(), ps.data_ptr(), ss.data_ptr(), out.data_ptr(), n, n_steps,
-        ops_eval.hidden_width(weights), cfg.dt,
+        ops_eval.hidden_width(weights) if team is None else team, cfg.dt,
         float(cfg.episode_length), term.position_bound, term.linear_velocity_bound,
         term.angular_velocity_bound, init.position_range, init.max_angle, init.angle_power,
         init.linear_velocity_std, init.angular_velocity_std, int(init.rpm_at_hover), seed,
@@ -242,13 +252,75 @@ def test_collect_plain_matches_pallas_interpret(pallas_runs, student, name):
     assert_collect_close(name, got, (obs, reset))
 
 
+@pytest.fixture(scope="module")
+def plain_runs(pallas_runs, student):
+    """collect_plain on each configuration: name -> (obs, reset)."""
+    out = {}
+    for name, (tcfg, steps, seed, ps, ss, _, _) in pallas_runs.items():
+        out[name] = ops_collect.collect_plain(student[1], ps, ss, steps, seed, 0, tcfg)
+    return out
+
+
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_host_build_of_collect_kernel_matches_plain(pallas_runs, student, host, name):
+def test_host_build_of_collect_kernel_matches_plain(pallas_runs, plain_runs, student, host,
+                                                    name):
     tcfg, steps, seed, ps, ss, _, _ = pallas_runs[name]
     weights = ops_eval.flatten_policy(student[1])
     assert_collect_close(
-        name, host_collect(host, weights, ps, ss, steps, seed, 0, tcfg),
-        ops_collect.collect_plain(student[1], ps, ss, steps, seed, 0, tcfg))
+        name, host_collect(host, weights, ps, ss, steps, seed, 0, tcfg), plain_runs[name])
+
+
+@pytest.mark.parametrize("team", TEAMS)
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_host_build_at_team_size_matches_plain(pallas_runs, plain_runs, student, host, name,
+                                               team):
+    """Hidden width 16 on a team of 1, 2, 4 or 8 lanes: the policy split
+    over U = 16, 8, 4 or 2 units a lane, the rotors over 1, 2 or 4 lanes."""
+    tcfg, steps, seed, ps, ss, _, _ = pallas_runs[name]
+    weights = ops_eval.flatten_policy(student[1])
+    assert_collect_close(
+        name, host_collect(host, weights, ps, ss, steps, seed, 0, tcfg, team=team),
+        plain_runs[name])
+
+
+@pytest.mark.parametrize("team", TEAMS)
+def test_team_cannot_split_at_the_termination_boundary(pallas_runs, student, host, team):
+    """Every env starts level, at rest, 0.5 to 11.5 mm inside the position
+    bound and flying out of it at 0.1 to 0.4 m/s, so it crosses the bound
+    within a few steps and resets. The team's done flag comes from lane 0 and
+    every lane draws the fresh state from the same counter: the reset masks
+    must equal the plain version's exactly, and each row after a reset must be
+    the plain sampler's fresh state (its observation, previous action 0) to
+    1e-6."""
+    _, _, _, ps, ss, _, _ = pallas_runs["no_reset"]
+    tcfg = EnvConfig(init=InitConfig(**GENTLE))  # default bounds
+    edge = ss.clone()
+    k = torch.arange(N, dtype=torch.float32)
+    edge[0:3] = 0.0
+    edge[0] = 0.6 - 1e-3 * ((k * 0.618) % 1.0 * 11.0 + 0.5)
+    edge[3:7] = torch.tensor([1.0, 0.0, 0.0, 0.0])[:, None]
+    edge[7:13] = 0.0
+    edge[7] = 0.1 + 0.3 * ((k * 0.414) % 1.0)
+    steps, seed = 30, 9
+    weights = ops_eval.flatten_policy(student[1])
+    obs, reset = host_collect(host, weights, ps, edge, steps, seed, 0, tcfg, team=team)
+    ref_obs, ref_reset = ops_collect.collect_plain(student[1], ps, edge, steps, seed, 0, tcfg)
+    np.testing.assert_array_equal(reset.numpy(), ref_reset.numpy())
+    crossed = (reset[:-1].sum(0) >= 1).float().mean()
+    assert float(crossed) > 0.9, float(crossed)  # most envs crossed the bound and reset
+    for t in range(steps - 1):
+        (envs,) = torch.nonzero(reset[t] == 1.0, as_tuple=True)
+        if envs.numel() == 0:
+            continue
+        fresh = ops_collect.sample_state(
+            DynamicsParams.from_soa(ps[:, envs]),
+            ops_collect.reset_counter(envs.to(torch.int64), seed, t), tcfg.init)
+        want = torch.cat([fresh.position, maths.quat_to_rotm(fresh.orientation).reshape(-1, 9),
+                          fresh.linear_velocity, fresh.angular_velocity,
+                          torch.zeros((envs.numel(), 4))], -1)
+        np.testing.assert_allclose(obs[t + 1, envs].numpy(), want.numpy(), atol=1e-6, rtol=0)
+        np.testing.assert_allclose(ref_obs[t + 1, envs].numpy(), want.numpy(), atol=1e-6,
+                                   rtol=0)
 
 
 def test_post_reset_rows_come_from_the_init_distribution(pallas_runs, student):

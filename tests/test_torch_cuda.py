@@ -15,11 +15,15 @@ resets, reset masks equal on >= 99.9 % of entries under truncation, and
 observations within 1e-5 where every row is a fresh draw of the in-kernel
 PRNG; the same at widths that are no multiple of the warp size (37, and the
 944 and 5,528 envs of a distillation round and of the 691-teacher union).
-The rollout and eval kernels fly an env on a team of lanes: they are held at
-those env counts and at 16,384 (ragged teams and warps), and the eval kernel
-at every hidden width it is built for, the collect kernel at width 32, with
-students whose biases and h0 are drawn too.
+The three kernels fly an env on a team of lanes: they are held at those env
+counts (and the rollout and eval kernels at 16,384: ragged teams and warps),
+the eval kernel at every hidden width it is built for, the collect kernel at
+widths 32 and 48 (48: the most registers and shared memory), with students
+whose biases and h0 are drawn too.
 """
+
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -152,10 +156,16 @@ def test_eval_kernel_matches_plain_at_hidden_width(inputs, card, hidden):
     assert_eval_agrees(got, want, N)
 
 
-@pytest.mark.cuda
-def test_collect_kernel_matches_plain_at_hidden_width_32(inputs, card):
+def collect_team() -> int:
+    """COLLECT_TEAM, the lanes an env the collect kernel is built with."""
+    header = (Path(__file__).resolve().parents[1] / "raptor_tpu_torch" / "csrc"
+              / "team_step.cuh").read_text()
+    return int(re.search(r"constexpr int COLLECT_TEAM = (\d+);", header).group(1))
+
+
+def _check_collect_at_width(inputs, card, hidden):
     ps = inputs[0]
-    policy = student(card, 32)
+    policy = student(card, hidden)
     weights = ops_collect.flatten_policy(policy)
     state = L2F(GENTLE).sample_state(
         DynamicsParams.from_soa(ps), torch.Generator(device=card).manual_seed(2)).to_soa()
@@ -169,7 +179,17 @@ def test_collect_kernel_matches_plain_at_hidden_width_32(inputs, card):
     obs, reset = ops_collect.collect_soa(weights, ps, state, 10, 5, 0, config)
     ref_obs, ref_reset = ops_collect.collect_plain(policy, ps, state, 10, 5, 0, config)
     torch.testing.assert_close(obs, ref_obs, atol=1e-5, rtol=0)
-    assert ops_collect.threads_per_env(32) == 1
+    assert ops_collect.threads_per_env(hidden) == collect_team()
+
+
+@pytest.mark.cuda
+def test_collect_kernel_matches_plain_at_hidden_width_32(inputs, card):
+    _check_collect_at_width(inputs, card, 32)
+
+
+@pytest.mark.cuda
+def test_collect_kernel_matches_plain_at_hidden_width_48(inputs, card):
+    _check_collect_at_width(inputs, card, 48)
 
 
 @pytest.mark.cuda
@@ -248,8 +268,9 @@ def test_collect_kernel_prng_matches_plain(inputs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [37, 944, 5528])
 def test_collect_kernel_matches_plain_at_ragged_widths(inputs, card, n):
-    """n is no multiple of 32: the last one-warp block is partly filled and
-    the channel stride n of the [T, 23, n] buffer is unaligned."""
+    """n is no multiple of 32: the last warp of the last block is partly
+    filled (teams past n are masked) and the channel stride n of the
+    [T, 23, n] buffer is unaligned."""
     _, _, _, policy, weights = inputs
     g = torch.Generator(device=card).manual_seed(n)
     frames = sample_population(g, n)

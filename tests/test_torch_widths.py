@@ -7,8 +7,8 @@
   `raptor_tpu.policy.network.init_params(key, hidden_dim=H)`: alive and length
   equal, return within 5e-3 / 1e-3, position within 1e-3 (the tolerances of
   tests/test_pallas_eval.py:76-83). Width 16 is tests/test_torch_ops.py's.
-- The host build of the collect kernel's per-env code (`collect_env<H>`) at
-  widths 24 and 32 against `pallas_collect.make_fused_collect` in interpret
+- The host build of the collect kernel's team code (`team_collect_env`, on
+  the kernel's team of `COLLECT_TEAM` lanes) at widths 24 and 32 against `pallas_collect.make_fused_collect` in interpret
   mode, on tests/test_torch_collect.py's truncation configuration (a reset
   every 8 steps, so the hidden state restarts from h0) at that file's
   tolerances: reset masks equal, observations within 2e-4 up to each env's
