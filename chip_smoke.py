@@ -82,8 +82,38 @@ with a non-zero exit code and no result line:
    `{"kernels": [...]}` line with the launches of phases 5, 7
    and 9 (`launches`), those of the bench's processes in phase 10
    (`bench_launches`), the lanes that fly one env (`threads_per_env`), error,
-   times and the bound;
-13. last line: {"ok": true, "device": {...}}.
+   times and the bound (printed after phases 13 to 17, which must pass first);
+13. export, with every launch count from 0 until the end of phase 17 (the
+   deployment path and the teacher gate run on the host or as eager PyTorch
+   and must launch no kernel): `python -m raptor_tpu_torch.apps.export_policy`
+   on the committed `data/student_rateFlagCurPure.npz` in both formats (the
+   rltools self-test below 1e-5), and on the flagship `.npz`, whose golden
+   output was written on another device, it must exit 2;
+14. native executor and firmware, built with g++/gcc from `native/` by
+   `inference.native`: the executor's self-test at most 1e-4, the firmware's
+   boot status OK. Then the card's `Executor` against the native executor:
+   2,000 calls at the 400 Hz schedule (2,500 us steps) fed from the golden
+   inputs, actions within 1e-5 and every status 0; prints each one's median
+   and p99 latency a call;
+15. software in the loop: the firmware flies a crazyflie for 500 steps of the
+   port's `L2F` on the card (initial attitudes up to 0.5 rad, 4 firmware calls
+   a step): no failsafe, no termination, |position| < 5 m at the end;
+16. the teacher gate at the JAX report's shape: `apps.eval_teachers` on
+   `artifacts/teachers_seed900_30M.npz` (128 teachers x 4 envs x 500 steps,
+   `--max-angle 0.2`) on the card, then `apps.filter_teachers --max-term 0.5`
+   on its report; prints the seconds of the evaluation, the teachers kept and
+   how often the card's gate agrees with the committed
+   `artifacts/eval_teachers_hover02b.json`. It fails under 85 % agreement,
+   with a count kept more than 6 off the report's 115, or with more than 4
+   teachers decided otherwise than the report put them at a share of 0 or 1
+   (`gate_agreement`). Then
+   `filter_teachers` on the committed report must reproduce
+   `artifacts/teachers_seed900_hovergate.npz` array for array;
+17. the l2f shim's README loop (`vector8`, `Raptor` on the card, 500 steps:
+   finite observations and positions, dts 0.01), then `apps.flight_eval
+   record --hover-start` with the same student, `analyze` (no crash) and
+   `replay` (final divergence under 1 cm);
+18. last line: {"ok": true, "device": {...}}.
 
 It imports neither JAX nor the JAX package. Without a CUDA device, or without
 the `raptor_tpu_torch` package beside it, it exits non-zero and prints no
@@ -124,6 +154,19 @@ WAVE = ["--population", "128", "--steps-per-call", "10", "--replay-capacity", "1
 WAVE_DEPTH = ["--super-steps", "3", "--eval-every", "3", "--log-every", "1",
               "--checkpoint-every", "0"]
 BENCH_GRAD_STEPS = 8  # the distillation sub-bench's gradient steps a round (full: 183)
+
+# the deployment path's student: its golden output replays on the CPU within
+# the exporter's 1e-3 (the flagship's, written on another device, does not)
+DEPLOY_STUDENT = os.path.join(ROOT, "raptor_tpu_torch", "data", "student_rateFlagCurPure.npz")
+# the teacher gate of the flagship recipe, at the committed report's shape
+GATE_PACK = "artifacts/teachers_seed900_30M.npz"
+GATE_REPORT = "artifacts/eval_teachers_hover02b.json"
+GATE_GATED = "artifacts/teachers_seed900_hovergate.npz"
+# The card draws other initial states than the committed report (written on
+# another device), so single decisions may differ; the gate as a whole may not.
+GATE_AGREEMENT = 0.85  # share of teachers both gates decide alike
+GATE_KEPT_SPREAD = 6  # teachers kept, off the committed report's count
+GATE_CLEAR_MISSES = 4  # decisions differing on teachers the report put at share 0 or 1
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # (FP32 FLOP/s outside the tensor cores, device-memory bytes/s).
@@ -176,6 +219,244 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def percentiles_us(seconds):
+    """(median, p99) of per-call seconds, in microseconds."""
+    ordered = sorted(seconds)
+    return (statistics.median(ordered) * 1e6,
+            ordered[min(len(ordered) - 1, int(0.99 * len(ordered)))] * 1e6)
+
+
+def gate_agreement(card_term, committed_term):
+    """Hold one pack's gate on the card to the committed report's: per-teacher
+    termination shares in, `(kept, agreement, clear_misses, faults)` out. A
+    teacher is kept at a share under 0.5. A clear miss is a teacher decided
+    otherwise than the report, which put it at a share of 0 or 1: an eval
+    that never (or always) terminates misses every such teacher on one side.
+    `faults` lists what breaks the bounds above; empty when the gate holds."""
+    import numpy as np
+
+    card, ref = np.asarray(card_term), np.asarray(committed_term)
+    miss = (card < 0.5) != (ref < 0.5)
+    kept, ref_kept = int((card < 0.5).sum()), int((ref < 0.5).sum())
+    agreement = float(1.0 - miss.mean())
+    clear = int((miss & ((ref == 0.0) | (ref == 1.0))).sum())
+    faults = []
+    if agreement < GATE_AGREEMENT:
+        faults.append(f"agreement {agreement:.3f} under {GATE_AGREEMENT}")
+    if abs(kept - ref_kept) > GATE_KEPT_SPREAD:
+        faults.append(f"kept {kept}, the report {ref_kept} +- {GATE_KEPT_SPREAD}")
+    if clear > GATE_CLEAR_MISSES:
+        faults.append(f"{clear} clear misses, more than {GATE_CLEAR_MISSES}")
+    return kept, agreement, clear, faults
+
+
+def sitl_flight(torch, firmware, dev, steps: int = 500) -> float:
+    """Phase 15: the booted `firmware` flies a crazyflie for `steps` steps of
+    the port's `L2F` on `dev` from attitudes up to 0.5 rad, 4 firmware calls a
+    10 ms step, its throttle mapped back to the [-1, 1] motor frame. Raises on
+    a failsafe or a termination; returns the final distance from the origin
+    in metres."""
+    from raptor_tpu_torch.env import EnvConfig, InitConfig, L2F, presets
+    from raptor_tpu_torch.inference import Firmware
+
+    env = L2F(EnvConfig(init=InitConfig(max_angle=0.5)))
+    frame = presets.crazyflie(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    es, _ = env.reset(frame, gen)
+    t_us = 0
+    for t in range(steps):
+        est = [getattr(es.dynamics, k)[0].cpu().numpy() for k in (
+            "position", "orientation", "linear_velocity", "angular_velocity")]
+        for j in range(4):
+            throttle, status = firmware.step(t_us, *est)
+            if status != Firmware.OK:
+                raise AssertionError(f"SITL: failsafe (status {status}) at step {t}.{j}")
+            t_us += 2500
+        action = torch.as_tensor(2.0 * throttle - 1.0, device=dev)[None]
+        es, _, _, _, info = env.step(frame, es, action, gen)
+        if bool(info["terminated"][0]):
+            raise AssertionError(f"SITL: crashed at step {t}")
+    return float(torch.linalg.norm(es.dynamics.position[0]))
+
+
+def readme_loop(dev, steps: int):
+    """The reference README's loop through the l2f shim's `vector8` on `dev`,
+    the deployment student flying all 8 envs. Raises on a non-finite
+    observation or position or a step other than 0.01 s; returns the vector
+    environment and its final state."""
+    import numpy as np
+
+    from raptor_tpu_torch.env import l2f_compat as l2f
+    from raptor_tpu_torch.policy.raptor import Raptor
+
+    device = l2f.Device(str(dev))
+    vector = l2f.vector8
+    rng, venv = vector.VectorRng(), vector.VectorEnvironment()
+    vparams, state, next_state = (vector.VectorParameters(), vector.VectorState(),
+                                  vector.VectorState())
+    l2f.initialize_rng(device, rng, seed=0)
+    l2f.initialize_environment(device, venv)
+    l2f.sample_initial_parameters(device, venv, vparams, rng)
+    l2f.sample_initial_state(device, venv, vparams, state, rng)
+    policy = Raptor(DEPLOY_STUDENT, batch_size=8, device=dev)
+    policy.reset()
+    obs = np.zeros((8, venv.OBSERVATION_DIM), np.float32)
+    for t in range(steps):
+        l2f.observe(device, venv, vparams, state, obs, rng)
+        dts = l2f.step(device, venv, vparams, state, policy.evaluate_step(obs[:, :22]),
+                       next_state, rng)
+        state.assign(next_state)
+        if not (np.all(np.isfinite(obs)) and dts.shape == (8,) and np.all(dts == np.float32(0.01))
+                and np.all(np.isfinite(state.states[0].position))):
+            raise AssertionError(f"l2f shim: a non-finite observation or a wrong dt at step {t}")
+    return venv, state
+
+
+def deployment_and_gate(torch, dev) -> None:
+    """Phases 13 to 17 (see the module docstring) on `dev`, the card (a CPU
+    device rehearses them at the same shapes); raises on any failure."""
+    import numpy as np
+
+    from raptor_tpu_torch.apps import eval_teachers as eval_teachers_cli
+    from raptor_tpu_torch.apps import filter_teachers as filter_teachers_cli
+    from raptor_tpu_torch.apps import flight_eval as flight_eval_cli
+    from raptor_tpu_torch.checkpoint import h5, rltools_export
+    from raptor_tpu_torch.inference import (
+        Executor, Firmware, NativeExecutor, build_executor, build_firmware,
+    )
+    from raptor_tpu_torch.ops import collect as ops_collect
+    from raptor_tpu_torch.ops import eval as ops_eval
+    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
+    from raptor_tpu_torch.ops import rollout as ops_rollout
+    from raptor_tpu_torch.utils import flightlog
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    wrappers = (ops_rollout, ops_eval, ops_collect, ops_fma_peak)
+    for w in wrappers:
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        # 13. export, as a user runs it
+        t0 = time.perf_counter()
+        headers = {}
+        for fmt in ("raptor", "rltools"):
+            headers[fmt] = os.path.join(tmp, f"policy_{fmt}.h")
+            out = subprocess.run(
+                [sys.executable, "-m", "raptor_tpu_torch.apps.export_policy", DEPLOY_STUDENT,
+                 headers[fmt], "--format", fmt], cwd=ROOT, stdout=subprocess.PIPE, text=True,
+                timeout=300, check=True).stdout.strip()
+            print(f"export: {out}")
+        drift = float(out.split("drift: ")[1])
+        self_test = float(out.split("max-err: ")[1].split()[0])
+        if not (self_test < 1e-5 and drift < 1e-3):
+            raise AssertionError(f"export: rltools self-test {self_test}, drift {drift}")
+        refused = subprocess.run(
+            [sys.executable, "-m", "raptor_tpu_torch.apps.export_policy", STUDENT,
+             os.path.join(tmp, "flagship.h")], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, timeout=300)
+        print(f"export: the flagship exits {refused.returncode}: {refused.stderr.strip()}")
+        if refused.returncode != 2 or os.path.exists(os.path.join(tmp, "flagship.h")):
+            raise AssertionError("export: the flagship's drifted golden output was not refused")
+        print(f"export: {time.perf_counter() - t0:.1f} s, drift {drift:.2e}, rltools self-test "
+              f"{self_test:.2e}")
+
+        # 14. native executor and firmware, then the card's Executor against
+        # the native one at the 400 Hz schedule
+        t0 = time.perf_counter()
+        native = NativeExecutor(build_executor(headers["raptor"]))
+        firmware_so = build_firmware(headers["raptor"])
+        firmware = Firmware(firmware_so)
+        native_err = native.self_test()
+        print(f"native: built in {time.perf_counter() - t0:.1f} s, self-test max err "
+              f"{native_err:.2e}, firmware boot status {firmware.boot_status}")
+        if native_err > 1e-4 or firmware.boot_status != Firmware.OK:
+            raise AssertionError(f"native: self-test {native_err}, boot {firmware.boot_status}")
+        params = h5.load_actor(DEPLOY_STUDENT)
+        _, golden_in, _ = rltools_export.import_rltools_header(headers["rltools"])
+        executor = Executor(params, device=dev)
+        executor.control(0, golden_in[0, 0])  # warm-up: the first launches initialise the card
+        executor.reset()
+        native.reset()
+        card_s, host_s, max_err = [], [], 0.0
+        for i in range(2000):
+            t_us, obs = 2500 * i, golden_in[i % 500, (i // 500) % 2]
+            t0 = time.perf_counter()
+            a_card, s_card = executor.control(t_us, obs)
+            t1 = time.perf_counter()
+            a_host, s_host = native.control(t_us, obs)
+            t2 = time.perf_counter()
+            card_s.append(t1 - t0)
+            host_s.append(t2 - t1)
+            max_err = max(max_err, float(np.max(np.abs(a_card - a_host))))
+            if s_card or s_host:
+                raise AssertionError(f"executors: call {i} status {s_card} / {s_host}")
+        if max_err > 1e-5:
+            raise AssertionError(f"executors: card and native actions differ by {max_err:.2e}")
+        (c_med, c_p99), (h_med, h_p99) = percentiles_us(card_s), percentiles_us(host_s)
+        print(f"executors: 2000 calls at 400 Hz, actions agree to {max_err:.2e}, every status 0; "
+              f"latency a call: Executor on {dev} median {c_med:.1f} us, p99 {c_p99:.1f} us; "
+              f"NativeExecutor on the host median {h_med:.2f} us, p99 {h_p99:.2f} us")
+
+        # 15. software in the loop against the card's simulator
+        t0 = time.perf_counter()
+        sitl = Firmware(firmware_so)  # the same library: boot again, fresh state
+        sitl.reset()
+        dist = sitl_flight(torch, sitl, dev)
+        print(f"SITL: 500 steps, no failsafe, no termination, |position| {dist:.3f} m at the "
+              f"end, {time.perf_counter() - t0:.1f} s")
+        if not dist < 5.0:
+            raise AssertionError(f"SITL: ended {dist} m out")
+
+        # 16. the teacher gate, from the root with the relative pack path
+        report_path = os.path.join(tmp, "eval_teachers.json")
+        sync()
+        t0 = time.perf_counter()
+        report = eval_teachers_cli.main([GATE_PACK, "--episodes", "4", "--max-angle", "0.2",
+                                         "--out", report_path, "--device", str(dev)])
+        sync()
+        gate_s = time.perf_counter() - t0
+        kept = filter_teachers_cli.main([GATE_PACK, os.path.join(tmp, "gated.npz"), "--eval",
+                                         report_path, "--max-term", "0.5"])
+        with open(GATE_REPORT) as f:
+            committed = json.load(f)[GATE_PACK]["per_teacher_share_terminated"]
+        gate_kept, agree, clear, faults = gate_agreement(
+            report[GATE_PACK]["per_teacher_share_terminated"], committed)
+        print(f"teacher gate: eval_teachers of 128 teachers x 4 envs x 500 steps {gate_s:.2f} s; "
+              f"kept {kept} of 128 (the committed report keeps "
+              f"{sum(x < 0.5 for x in committed)}); the gate decisions agree on "
+              f"{100 * agree:.1f} % of teachers, {clear} differ on a teacher the report put "
+              f"at share 0 or 1")
+        if faults or kept != gate_kept:
+            raise AssertionError(f"teacher gate: {faults}, filter_teachers kept {kept}")
+        filter_teachers_cli.main([GATE_PACK, os.path.join(tmp, "gated_committed.npz"), "--eval",
+                                  GATE_REPORT, "--max-term", "0.5"])
+        with np.load(os.path.join(tmp, "gated_committed.npz")) as got, np.load(GATE_GATED) as want:
+            if sorted(got.files) != sorted(want.files) or not all(
+                    np.array_equal(got[k], want[k]) for k in want.files):
+                raise AssertionError(f"teacher gate: {GATE_GATED} not reproduced")
+        print(f"teacher gate: the committed report reproduces {GATE_GATED} array for array")
+
+        # 17. the l2f shim's README loop, then flight evaluation on the card
+        t0 = time.perf_counter()
+        _, state = readme_loop(dev, 500)
+        print(f"l2f shim: vector8 README loop, 500 steps on {state.dynamics.position.device}, "
+              f"finite, {time.perf_counter() - t0:.1f} s")
+        log_path = os.path.join(tmp, "flight.csv")
+        t0 = time.perf_counter()
+        flight_eval_cli.main(["record", log_path, "--checkpoint", DEPLOY_STUDENT,
+                              "--hover-start", "--device", str(dev)])
+        flight = flight_eval_cli.main(["analyze", log_path, "--device", str(dev)])
+        replay = flight_eval_cli.main(["replay", log_path, "--device", str(dev)])
+        print(f"flight eval: {len(flightlog.read_csv(log_path).t_us)} samples, position RMSE "
+              f"{flight['position_rmse_m']:.4f} m, crashed {flight['crashed']}, replay final "
+              f"divergence {replay['divergence_final_m']:.2e} m, {time.perf_counter() - t0:.1f} s")
+        if flight["crashed"] or not replay["divergence_final_m"] < 1e-2:
+            raise AssertionError(f"flight eval: {flight} {replay}")
+    launches = {w.__name__.rsplit(".", 1)[1]: w.launches for w in wrappers}
+    print(f"deployment and teacher gate launches: {launches}")
+    if any(launches.values()):
+        raise AssertionError("the deployment path and the gate run no kernel, yet one launched")
+
+
 def main() -> int:
     import torch
 
@@ -184,6 +465,7 @@ def main() -> int:
     if not os.path.isfile(os.path.join(ROOT, "raptor_tpu_torch", "__init__.py")):
         return fail(f"no raptor_tpu_torch package beside {__file__}")
     sys.path.insert(0, ROOT)
+    os.chdir(ROOT)  # the manifests and reports name their packs relative to the root
 
     from raptor_tpu_torch.apps import bench_collect as bench_collect_cli
     from raptor_tpu_torch.apps import evaluate as evaluate_cli
@@ -738,6 +1020,7 @@ def main() -> int:
         "plain_ms": fma_plain_ms, "plain_depth": fma_depth, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
     })
+    deployment_and_gate(torch, dev)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
