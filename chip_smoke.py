@@ -82,7 +82,7 @@ with a non-zero exit code and no result line:
    `{"kernels": [...]}` line with the launches of phases 5, 7
    and 9 (`launches`), those of the bench's processes in phase 10
    (`bench_launches`), the lanes that fly one env (`threads_per_env`), error,
-   times and the bound (printed after phases 13 to 17, which must pass first);
+   times and the bound (printed after phases 13 to 19, which must pass first);
 13. export, with every launch count from 0 until the end of phase 17 (the
    deployment path and the teacher gate run on the host or as eager PyTorch
    and must launch no kernel): `python -m raptor_tpu_torch.apps.export_policy`
@@ -113,7 +113,29 @@ with a non-zero exit code and no result line:
    finite observations and positions, dts 0.01), then `apps.flight_eval
    record --hover-start` with the same student, `analyze` (no crash) and
    `replay` (final divergence under 1 cm);
-18. last line: {"ok": true, "device": {...}}.
+18. the recurrent learner, with every launch count from 0 until the end of
+   phase 19 (the learners run as eager PyTorch and must launch no kernel):
+   before training, the grafted actor's tanh(mu) against the
+   `rateFlagCurPure` student on its golden inputs (atol 1e-5, log-std -2);
+   then `apps.train_gru_sac.main` at its own defaults (256 envs, rollout 64,
+   8 gradient steps of 64 windows x 64 steps, burn-in 8, privileged critics,
+   replay 4,096 rows) with `--init-actor` on that student, cut in depth only
+   (8 warm-up and 10 super-steps, `--eval-every 10`): the four logged metrics
+   and the five evaluation statistics finite, the checkpoint the actor's mu
+   head and its self-test passed; prints the CLI's seconds, the peak device
+   memory, and the seconds of one `collect_sequences` and one
+   `train_sequences` apart;
+19. the other learners through `rl.loop.Loop` (`CoreStep`, `EvaluationStep`,
+   `CheckpointStep` through `utils.state_checkpoint`, `FailureDetectionStep`
+   with an in-place `Snapshot`, `TimingStep`, `ExtrackStep`), 4 iterations
+   each: TD3 and SAC through `rl.runner_generic` at `RunnerConfig`'s defaults
+   (64 envs, H 32, G 32, batch 256), PPO at `PPOConfig`'s on 64 envs; every
+   metric and evaluation finite; TD3 restored from its newest checkpoint into
+   a fresh trainer takes the same step as the live one bit for bit; a NaN put
+   into TD3's critic is rolled back to the snapshot; `utils.profiling.
+   device_trace` around one super-step writes a trace holding CUDA kernel
+   events; prints each learner's seconds an iteration and the launch counts;
+20. last line: {"ok": true, "device": {...}}.
 
 It imports neither JAX nor the JAX package. Without a CUDA device, or without
 the `raptor_tpu_torch` package beside it, it exits non-zero and prints no
@@ -455,6 +477,260 @@ def deployment_and_gate(torch, dev) -> None:
     print(f"deployment and teacher gate launches: {launches}")
     if any(launches.values()):
         raise AssertionError("the deployment path and the gate run no kernel, yet one launched")
+
+
+# phase 18: train_gru_sac at its own defaults (256 envs, rollout 64, 8 gradient
+# steps of 64 windows x 64 steps, burn-in 8, privileged critics, replay 4,096
+# rows), cut in depth only
+GRU_DEPTH = ["--warmup-super-steps", "8", "--super-steps", "10", "--eval-every", "10"]
+# phase 19: iterations of each learner through rl.loop, evaluating and
+# checkpointing every LOOP_EVERY iterations
+LOOP_ITERS = 4
+LOOP_EVERY = 2
+
+
+def _finite(torch, values) -> bool:
+    return all(bool(torch.isfinite(torch.as_tensor(v)).all()) for v in values)
+
+
+def learners(torch, dev) -> None:
+    """Phases 18 and 19 (see the module docstring) on `dev`, the card;
+    raises on any failure. Every launch count is set to 0 first: the learners
+    run as eager PyTorch and must launch no kernel of the port."""
+    import dataclasses
+
+    import numpy as np
+
+    from raptor_tpu_torch.apps import train_gru_sac as gru_cli
+    from raptor_tpu_torch.checkpoint import from_numpy, h5
+    from raptor_tpu_torch.env import EnvConfig, L2F, sample_population
+    from raptor_tpu_torch.ops import collect as ops_collect
+    from raptor_tpu_torch.ops import eval as ops_eval
+    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
+    from raptor_tpu_torch.ops import rollout as ops_rollout
+    from raptor_tpu_torch.policy import network
+    from raptor_tpu_torch.rl import evaluation, loop, ppo, runner, runner_generic, runner_gru
+    from raptor_tpu_torch.rl import sac_gru, td3
+    from raptor_tpu_torch.utils import guards, profiling
+    from raptor_tpu_torch.utils import state_checkpoint as sck
+    from raptor_tpu_torch.utils.extrack import Run
+    from raptor_tpu_torch.utils.tfevents import read_scalars
+
+    sync = profiling.synchronize
+    wrappers = (ops_rollout, ops_eval, ops_collect, ops_fma_peak)
+    for w in wrappers:
+        w.launches = 0
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 18. the recurrent path: the graft on the student's golden inputs,
+        # then the CLI as a user runs it
+        argv = [*GRU_DEPTH, "--init-actor", DEPLOY_STUDENT, "--experiments-dir", tmp,
+                "--device", str(dev)]
+        args = gru_cli.parse_args(argv)
+        env, _, run_cfg, cfg = gru_cli.configs(args)
+        gen = torch.Generator(dev).manual_seed(0)
+        learner = sac_gru.sac_gru_init(gen, env.OBSERVATION_DIM, 4, cfg)
+        student = from_numpy(h5.load_actor(DEPLOY_STUDENT), dev)
+        actor = sac_gru.graft_actor_from_student(learner.actor, student, 4, args.init_log_std)
+        golden_in = torch.as_tensor(h5.load_example_io(DEPLOY_STUDENT)[0], device=dev)
+        reset = torch.zeros(golden_in.shape[:2], device=dev)
+        reset[0] = 1.0
+        with torch.no_grad():
+            mu, log_std = sac_gru.actor_forward(actor, golden_in, reset, cfg)
+            _, raw = network.apply_sequence(student, golden_in)
+        graft_err = check_close("graft: tanh(mu) vs tanh(student)", torch.tanh(mu),
+                                torch.tanh(raw), 1e-5, 0.0)
+        check_close("graft: log-std", log_std, torch.full_like(log_std, args.init_log_std),
+                    1e-6, 0.0)
+        held_gib = 0.0  # device memory the earlier phases still hold
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            held_gib = torch.cuda.memory_allocated(dev) / 2**30
+        sync()
+        t0 = time.perf_counter()
+        path = gru_cli.main(argv)
+        sync()
+        cli_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+        events = [f for f in os.listdir(os.path.dirname(os.path.dirname(path)))
+                  if f.startswith("events.out")]
+        scalars = read_scalars(os.path.join(os.path.dirname(os.path.dirname(path)), events[0]))
+        metrics = {k: v[-1][1] for k, v in scalars.items() if not k.startswith("evaluation/")}
+        stats = {k: v[-1][1] for k, v in scalars.items() if k.startswith("evaluation/")}
+        self_test = h5.verify_checkpoint(path)
+        saved = h5.load_actor(path)
+        print(f"train_gru_sac: graft err {graft_err:.2e} on the golden inputs; "
+              f"{args.warmup_super_steps} warm-up and {args.super_steps} super-steps of "
+              f"{args.n_envs} envs in {cli_s:.1f} s, peak device memory {peak_gib:.3f} GiB "
+              f"({held_gib:.3f} GiB of it held before the run); "
+              f"metrics {metrics}; evaluation {stats}; checkpoint {os.path.basename(path)} "
+              f"self-test {self_test:.2e}")
+        if sorted(metrics) != ["actor_loss", "alpha", "critic_loss", "entropy"] or len(stats) != 5:
+            raise AssertionError(f"train_gru_sac: logged {sorted(scalars)}")
+        if not (_finite(torch, metrics.values()) and _finite(torch, stats.values())):
+            raise AssertionError("train_gru_sac: a non-finite metric or statistic")
+        if saved["dense_2"]["weights"].shape != (4, 16) or saved["dense_0"]["weights"].shape != (
+                16, 22):
+            raise AssertionError("train_gru_sac: the checkpoint is not the actor's mu head")
+        # one collect and one train phase apart, at the CLI's shapes
+        params = sample_population(gen, args.n_envs)
+        state = runner_gru.gru_trainer_init(gen, env, params, run_cfg, cfg)
+        for _ in range(args.warmup_super_steps):
+            runner_gru.collect_sequences(state, env, params, run_cfg, cfg, random_actions=True)
+        runner_gru.train_sequences(state, run_cfg, cfg)  # warm-up
+        phase_s = {}
+        for name, fn in (("collect", lambda: runner_gru.collect_sequences(
+                state, env, params, run_cfg, cfg)),
+                         ("train", lambda: runner_gru.train_sequences(state, run_cfg, cfg))):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            phase_s[name] = time.perf_counter() - t0
+        if any(w.launches for w in wrappers):
+            raise AssertionError("train_gru_sac runs no kernel, yet one launched")
+        print(f"train_gru_sac: one super-step at {args.n_envs} envs: collect_sequences "
+              f"({args.rollout_length} steps) {phase_s['collect']:.3f} s, train_sequences "
+              f"({args.gradient_steps} updates of {args.batch_size} x {args.seq_len}) "
+              f"{phase_s['train']:.3f} s")
+
+        # 19. TD3, SAC and PPO through rl.loop
+        env = L2F(EnvConfig())
+        run_cfg = runner.RunnerConfig()
+        n = run_cfg.n_envs
+        per_iter = {}
+
+        @dataclasses.dataclass
+        class OnPolicy:
+            learner: object
+            env_state: object
+            obs: object
+            generator: object
+
+        def eval_fn(policy):
+            def evaluate(state):
+                step, carry = policy(state.learner)
+                g = torch.Generator(dev).manual_seed(5)
+                with torch.no_grad():
+                    stats = evaluation.evaluate(env, sample_population(g, n), step, carry, g, n)
+                return stats._asdict()
+            return evaluate
+
+        def build(name, seed):
+            g = torch.Generator(dev).manual_seed(seed)
+            params = sample_population(g, n)
+            if name == "ppo":
+                ppo_cfg = ppo.PPOConfig()
+                es, obs = env.reset(params, g)
+                it = ppo.make_ppo_iteration(env, ppo_cfg)
+
+                def step(st, p):
+                    st.learner, st.env_state, st.obs, st.generator, m = it(
+                        st.learner, p, st.env_state, st.obs, st.generator)
+                    return st, m
+                return (OnPolicy(ppo.ppo_init(g, env.OBSERVATION_DIM, 4, ppo_cfg), es, obs, g),
+                        step, params, ppo_cfg.rollout_length * n,
+                        lambda a: evaluation.mlp_policy_step(a.actor))
+            spec = runner_generic.td3_spec() if name == "td3" else runner_generic.sac_spec()
+            state = runner_generic.generic_trainer_init(g, env, params, run_cfg, spec)
+            step = runner_generic.make_generic_super_step(env, run_cfg, spec)
+            policy = ((lambda a: (lambda c, o: (c, td3.deterministic_actor_apply(a.actor, o)), ()))
+                      if name == "td3" else lambda a: evaluation.mlp_policy_step(a.actor))
+            return state, step, params, run_cfg.rollout_length * n, policy
+
+        for name in ("td3", "sac", "ppo"):
+            state, step, params, steps_per, policy = build(name, 1)
+            times = []
+
+            def timed(st, p):
+                sync()
+                t0 = time.perf_counter()
+                out = step(st, p)
+                sync()
+                times.append(time.perf_counter() - t0)
+                return out
+
+            ckpt_dir = os.path.join(tmp, name)
+            os.makedirs(ckpt_dir)
+            saves, evals = [], []
+            snap = guards.Snapshot()
+            detector = guards.FailureDetectionStep(every_iters=1, check_state=True,
+                                                   snapshot_fn=snap.take, restore_fn=snap.restore)
+            run = Run(base_dir=tmp, experiment=name)
+            holder = loop.StateHolder(state, steps_per)
+            evaluate = eval_fn(policy)
+            training = loop.Loop(
+                loop.CoreStep(timed, params),
+                loop.EvaluationStep(lambda st: evals.append(evaluate(st)) or evals[-1],
+                                    every_env_steps=LOOP_EVERY * steps_per),
+                loop.CheckpointStep(lambda st, k: saves.append(sck.save_pytree(
+                    os.path.join(ckpt_dir, f"state_{k}"), st)), LOOP_EVERY * steps_per),
+                detector,
+                loop.TimingStep(log_every_iters=LOOP_EVERY),
+                loop.ExtrackStep(),
+                extrack_run=run,
+            )
+            for _ in range(LOOP_ITERS):
+                training.step(holder)
+            run.close()
+            m = holder.last_metrics
+            if not (_finite(torch, m) and all(_finite(torch, e.values()) for e in evals)):
+                raise AssertionError(f"{name}: non-finite metrics {m} or evaluation {evals}")
+            if len(saves) != LOOP_ITERS // LOOP_EVERY or detector.restores:
+                raise AssertionError(f"{name}: {len(saves)} checkpoints, {detector.restores} "
+                                     "restores")
+            per_iter[name] = statistics.median(times[1:])
+            logged = read_scalars(os.path.join(run.dir, [
+                f for f in os.listdir(run.dir) if f.startswith("events.out")][0]))
+            print(f"{name}: {LOOP_ITERS} loop iterations, {per_iter[name]:.3f} s an iteration "
+                  f"(median after the first; first {times[0]:.3f} s), metrics "
+                  f"{ {k: float(v) for k, v in m._asdict().items()} }, return "
+                  f"{float(evals[-1]['return_mean']):.2f}, tags {sorted(logged)}")
+            if name != "td3":
+                continue
+            # resume bit for bit: a fresh trainer restored from the newest
+            # checkpoint takes the same step as the live one
+            latest, _ = sck.latest_checkpoint(ckpt_dir)
+            state_a, metrics_a = step(holder.state, params)
+            template, _, _, _, _ = build(name, 2)
+            state_b, metrics_b = step(sck.restore_pytree(latest, template), params)
+            leaves_a, leaves_b = sck.leaves_with_path(state_a), sck.leaves_with_path(state_b)
+            diff = [pa for (pa, _, _, a), (_, _, _, b) in zip(leaves_a, leaves_b)
+                    if isinstance(a, torch.Tensor) and not torch.equal(a, b)]
+            diff += [k for k, a, b in zip(metrics_a._fields, metrics_a, metrics_b)
+                     if not torch.equal(a, b)]
+            print(f"td3: resumed from {os.path.basename(latest)} on {dev}: "
+                  f"{'bit for bit' if not diff else diff}")
+            if diff:
+                raise AssertionError(f"td3: resume differs in {diff}")
+            # a NaN in the critic: the guard restores the last snapshot
+            detector(holder, None)  # a healthy check: snapshot
+            w = holder.state.learner.critic["q1"]["layers"][0]["w"]
+            good = w.detach().clone()
+            with torch.no_grad():
+                w[0, 0] = float("nan")
+            detector(holder, None)
+            if detector.restores != 1 or not torch.equal(w.detach(), good):
+                raise AssertionError("td3: the NaN in the critic was not rolled back")
+            print("td3: a NaN put into the critic was found and rolled back to the snapshot")
+            # a trace of one super-step
+            trace_dir = os.path.join(tmp, "trace")
+            with profiling.device_trace(trace_dir) as prof:
+                step(holder.state, params)
+            with open(os.path.join(trace_dir, "trace.json")) as f:
+                trace = json.load(f)
+            kernels = [ev for ev in trace["traceEvents"] if ev.get("cat") == "kernel"]
+            device_us = sum(ev.get("dur", 0) for ev in kernels)
+            print(f"td3: device_trace of one super-step: {len(trace['traceEvents'])} events, "
+                  f"{len(kernels)} CUDA kernel events, {device_us / 1e3:.2f} ms of kernel time; "
+                  f"top ops {[e.key for e in sorted(prof.key_averages(), key=lambda e: -e.count)[:3]]}")
+            if dev.type == "cuda" and not kernels:
+                raise AssertionError("td3: the trace holds no CUDA kernel event")
+    launches = {w.__name__.rsplit(".", 1)[1]: w.launches for w in wrappers}
+    print(f"learners: seconds an iteration {per_iter}; launches {launches}; phases 18-19 "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if any(launches.values()):
+        raise AssertionError("the learners run no kernel, yet one launched")
 
 
 def main() -> int:
@@ -1021,6 +1297,7 @@ def main() -> int:
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
     })
     deployment_and_gate(torch, dev)
+    learners(torch, dev)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -128,3 +128,76 @@ def transition_buffer_from_numpy(buf_np, device):
         ptr=int(np.max(np.asarray(buf_np.ptr))),
         size=int(np.max(np.asarray(buf_np.size))),
     )
+
+
+def sac_gru_state_from_numpy(state_np, device, config=None):
+    """A recurrent SAC learner given as arrays (the JAX package's
+    `SACGRUState` with every leaf a numpy array: actor, twin critics and
+    their targets, `log_alpha`, the three `optax.adam` states, `step`) ->
+    `rl.sac_gru.SACGRUState` on `device`. The JAX package runs one Adam over
+    the pair of critics; its moments split over the port's Adam in the same
+    order, under the one shared count."""
+    from raptor_tpu_torch.rl import sac_gru
+
+    config = sac_gru.SACGRUConfig() if config is None else config
+    gru = lambda t: from_numpy(t, device)  # noqa: E731
+    state = sac_gru.make_state(
+        gru(state_np.actor), gru(state_np.critic1), gru(state_np.critic2),
+        gru(state_np.target1), gru(state_np.target2), _tensor(state_np.log_alpha, device),
+        config, step=int(np.asarray(state_np.step)),
+    )
+    _load_adam(state.actor_opt, state_np.actor_opt, gru)
+    _load_adam(state.critic_opt, state_np.critic_opt, lambda t: (gru(t[0]), gru(t[1])))
+    _load_adam(state.alpha_opt, state_np.alpha_opt, lambda t: _tensor(t, device))
+    return state
+
+
+def td3_state_from_numpy(state_np, device, config=None):
+    """A TD3 learner given as arrays (the JAX package's `TD3State`: actor,
+    target actor, twin critics, target critics, two `optax.adam` states,
+    `step`) -> `rl.td3.TD3State` on `device`. The actor's Adam count is the
+    number of policy steps taken, as in the JAX state."""
+    from raptor_tpu_torch.rl import td3
+
+    config = td3.TD3Config() if config is None else config
+    state = td3.make_state(
+        mlp_from_numpy(state_np.actor, device), mlp_from_numpy(state_np.target_actor, device),
+        critic_from_numpy(state_np.critic, device),
+        critic_from_numpy(state_np.target_critic, device),
+        config, step=int(np.asarray(state_np.step)),
+    )
+    _load_adam(state.actor_opt, state_np.actor_opt, lambda t: mlp_from_numpy(t, device))
+    _load_adam(state.critic_opt, state_np.critic_opt, lambda t: critic_from_numpy(t, device))
+    return state
+
+
+def ppo_state_from_numpy(state_np, device, config=None):
+    """A PPO learner given as arrays (the JAX package's `PPOState`: actor,
+    value, the `optax.chain(clip_by_global_norm, adam)` state over
+    {actor, value}, `step`) -> `rl.ppo.PPOState` on `device`."""
+    from raptor_tpu_torch.rl import ppo
+
+    config = ppo.PPOConfig() if config is None else config
+    state = ppo.make_state(mlp_from_numpy(state_np.actor, device),
+                           mlp_from_numpy(state_np.value, device), config,
+                           step=int(np.asarray(state_np.step)))
+    _load_adam(state.opt, state_np.opt[1], lambda t: {
+        "actor": mlp_from_numpy(t["actor"], device), "value": mlp_from_numpy(t["value"], device)})
+    return state
+
+
+def sequence_buffer_from_numpy(buf_np, device):
+    """A sequence ring given as arrays (the JAX package's `SequenceBuffer`,
+    [C, N, d]) -> `rl.replay.SequenceBuffer` on `device`; `ptr` and `size`
+    become ints."""
+    from raptor_tpu_torch.rl.replay import SequenceBuffer
+
+    return SequenceBuffer(
+        obs=_tensor(buf_np.obs, device),
+        action=_tensor(buf_np.action, device),
+        reward=_tensor(buf_np.reward, device),
+        done=_tensor(buf_np.done, device),
+        reset=_tensor(buf_np.reset, device),
+        ptr=int(np.asarray(buf_np.ptr)),
+        size=int(np.asarray(buf_np.size)),
+    )

@@ -232,6 +232,24 @@ def critic_apply(params: Params, obs: torch.Tensor, action: torch.Tensor, dtype=
     return h[0, ..., 0], h[1, ..., 0]
 
 
+def tree_clone(params):
+    """A copy of a parameter tree (nested dicts and lists) that shares no
+    storage with it and records no gradient."""
+    if isinstance(params, torch.Tensor):
+        return params.detach().clone()
+    if isinstance(params, dict):
+        return {k: tree_clone(v) for k, v in params.items()}
+    return [tree_clone(v) for v in params]
+
+
+@torch.no_grad()
+def polyak_(target, source, tau: float) -> None:
+    """target <- (1 - tau) target + tau source, leaf by leaf, in place."""
+    leaves = tree_leaves(target)
+    torch._foreach_mul_(leaves, 1.0 - tau)
+    torch._foreach_add_(leaves, tree_leaves(source), alpha=tau)
+
+
 def tree_leaves(params) -> list:
     """The tensors of a parameter tree (nested dicts and lists), in a fixed
     order."""

@@ -1,11 +1,12 @@
-"""Device-resident replay ring for the SAC teachers.
+"""Device-resident replay rings for the SAC teachers and the recurrent learner.
 
-Counterpart of `TransitionBuffer` in `raptor_tpu/rl/replay.py`: flat
+Counterpart of `raptor_tpu/rl/replay.py`. `TransitionBuffer`: flat
 (s, a, r, s', done) transitions stored as [C, N, d] arrays (C time rows of N
 envs), written at a ring pointer and sampled as random (time, env) pairs or as
 whole time rows. A population of K learners is the same buffer with a leading
 [K] axis on every array, [K, C, N, d], one ring per member advancing in
-lockstep; each member draws its own sample.
+lockstep; each member draws its own sample. `SequenceBuffer`: the same ring of
+time rows with a `reset` column, sampled as [B, T] windows for BPTT.
 
 The buffer is a mutable dataclass and the writes are in place
 (`index_copy_`): the ring is allocated once. `ptr` and `size` are plain ints.
@@ -148,3 +149,89 @@ def transition_buffer_sample_rows(
         arr[where].reshape(*lead, batch_size, *arr.shape[len(lead) + 2:])
         for arr, _ in buf.arrays()
     )
+
+
+# ---------------------------------------------------------------------------
+# sequence replay (GRU / BPTT)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SequenceBuffer:
+    """Ring of time rows with episode-boundary masks, sampled as fixed-length
+    windows for BPTT. Stores (obs, action, reward, terminated) per step plus a
+    `reset` flag on the first row of an episode, so a sampled window knows
+    where to re-inject the learned initial hidden state."""
+
+    obs: torch.Tensor  # [C, N, obs_dim]
+    action: torch.Tensor  # [C, N, act_dim]
+    reward: torch.Tensor  # [C, N]
+    done: torch.Tensor  # [C, N] terminated (bootstrapping mask)
+    reset: torch.Tensor  # [C, N] 1.0 where this row starts a new episode
+    ptr: int
+    size: int
+
+    @property
+    def capacity(self) -> int:
+        return self.obs.shape[0]
+
+    @property
+    def n_envs(self) -> int:
+        return self.obs.shape[1]
+
+    def arrays(self):
+        return (self.obs, self.action, self.reward, self.done, self.reset)
+
+
+def sequence_buffer_init(
+    capacity: int, n_envs: int, obs_dim: int, action_dim: int, device
+) -> SequenceBuffer:
+    def zeros(*tail):
+        return torch.zeros((capacity, n_envs, *tail), dtype=torch.float32, device=device)
+
+    return SequenceBuffer(obs=zeros(obs_dim), action=zeros(action_dim), reward=zeros(),
+                          done=zeros(), reset=zeros(), ptr=0, size=0)
+
+
+@torch.no_grad()
+def sequence_buffer_add_rollout(
+    buf: SequenceBuffer,
+    obs: torch.Tensor,  # [H, N, obs_dim]
+    action: torch.Tensor,
+    reward: torch.Tensor,  # [H, N]
+    done: torch.Tensor,
+    reset: torch.Tensor,
+) -> SequenceBuffer:
+    """Ring write of H time rows. Writes into `buf`."""
+    h, cap = obs.shape[0], buf.capacity
+    idx = (buf.ptr + torch.arange(h, device=buf.obs.device)) % cap
+    for arr, rows in zip(buf.arrays(), (obs, action, reward, done, reset)):
+        arr.index_copy_(0, idx, rows.to(arr.dtype))
+    buf.ptr = (buf.ptr + h) % cap
+    buf.size = min(buf.size + h, cap)
+    return buf
+
+
+def sequence_buffer_sample(
+    buf: SequenceBuffer, generator: Optional[torch.Generator], batch_size: int, seq_len: int,
+    idx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> dict:
+    """[B, T] windows: a dict of [B, T, ...] tensors plus `env_idx` [B].
+
+    Windows are drawn from filled rows in logical (time) order: logical index
+    0 is the oldest surviving row, so once the ring wraps a window never
+    straddles the write pointer. A window starts at t0 in [0, max(size - T,
+    1)), exclusive at the top; where size < T every window starts at 0.
+    `idx` = (t0, env), each [B], replaces the draws from the generator."""
+    if idx is None:
+        dev = buf.obs.device
+        idx = (_randint(generator, (batch_size,), buf.size - seq_len, dev),
+               _randint(generator, (batch_size,), buf.n_envs, dev))
+    t0, e_idx = idx
+    base = (buf.ptr - buf.size + buf.capacity) % buf.capacity
+    t_idx = (base + t0[:, None] + torch.arange(seq_len, device=t0.device)[None, :]) % buf.capacity
+    e_full = e_idx[:, None].expand(-1, seq_len)
+    out = {name: arr[t_idx, e_full] for name, arr in zip(
+        ("obs", "action", "reward", "done", "reset"), buf.arrays())}
+    out["env_idx"] = e_idx
+    return out

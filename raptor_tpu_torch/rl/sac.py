@@ -76,18 +76,19 @@ class SACMetrics(NamedTuple):
     entropy: torch.Tensor
 
 
+def adam(leaves, lr: float, foreach: Optional[bool] = None) -> torch.optim.Adam:
+    """`optax.adam`'s arithmetic: eps 1e-8 outside the square root."""
+    return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, foreach=foreach)
+
+
 def make_optimizers(config: SACConfig, actor, critic, log_alpha):
-    """The three Adams (eps 1e-8 outside the square root, as `optax.adam`)
-    over the leaves of the actor, the critic and the temperature."""
-
-    def adam(leaves, lr):
-        return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                foreach=True if config.flat_optim else None)
-
+    """The three Adams over the leaves of the actor, the critic and the
+    temperature."""
+    foreach = True if config.flat_optim else None
     return (
-        adam(networks.tree_leaves(actor), config.actor_lr),
-        adam(networks.tree_leaves(critic), config.critic_lr),
-        adam([log_alpha], config.alpha_lr),
+        adam(networks.tree_leaves(actor), config.actor_lr, foreach),
+        adam(networks.tree_leaves(critic), config.critic_lr, foreach),
+        adam([log_alpha], config.alpha_lr, foreach),
     )
 
 
@@ -111,8 +112,7 @@ def sac_init(
     independent learners stacked on a leading axis."""
     actor = networks.actor_init(generator, obs_dim, action_dim, config.actor_hidden, n_stack)
     critic = networks.critic_init(generator, obs_dim, action_dim, config.critic_hidden, n_stack)
-    target = {q: {"layers": [{k: v.clone() for k, v in layer.items()}
-                             for layer in critic[q]["layers"]]} for q in ("q1", "q2")}
+    target = networks.tree_clone(critic)
     log_alpha = torch.full(() if n_stack is None else (n_stack,), math.log(config.init_alpha),
                            dtype=torch.float32, device=generator.device)
     return make_state(actor, critic, target, log_alpha, config)
@@ -175,10 +175,8 @@ def sac_update(
     _step(state.alpha_opt, alpha_loss.sum())
 
     # ---- polyak target ----
+    networks.polyak_(state.target_critic, state.critic, config.tau)
     with torch.no_grad():
-        targets = networks.tree_leaves(state.target_critic)
-        torch._foreach_mul_(targets, 1.0 - config.tau)
-        torch._foreach_add_(targets, networks.tree_leaves(state.critic), alpha=config.tau)
         new_alpha = torch.exp(state.log_alpha)
 
     state.step += 1
