@@ -82,7 +82,7 @@ with a non-zero exit code and no result line:
    `{"kernels": [...]}` line with the launches of phases 5, 7
    and 9 (`launches`), those of the bench's processes in phase 10
    (`bench_launches`), the lanes that fly one env (`threads_per_env`), error,
-   times and the bound (printed after phases 13 to 19, which must pass first);
+   times and the bound (printed after phases 13 to 20, which must pass first);
 13. export, with every launch count from 0 until the end of phase 17 (the
    deployment path and the teacher gate run on the host or as eager PyTorch
    and must launch no kernel): `python -m raptor_tpu_torch.apps.export_policy`
@@ -135,7 +135,25 @@ with a non-zero exit code and no result line:
    into TD3's critic is rolled back to the snapshot; `utils.profiling.
    device_trace` around one super-step writes a trace holding CUDA kernel
    events; prints each learner's seconds an iteration and the launch counts;
-20. last line: {"ok": true, "device": {...}}.
+20. the analysis apps, the multi-device bench and the visualiser, with every
+   launch count from 0 (they run as eager PyTorch and must launch no kernel):
+   `apps.recoverability` at its default n = 4,096 over its six angles (the
+   bound at most 0.05 at every angle); `apps.failure_modes` on the
+   `rateFlagCurPure` student and `apps.scripted_recovery`, each at its
+   defaults (32 airframes x 8 envs x 500 steps, pi starts): every
+   termination has a cause, and the share terminated of each population lies
+   within `SHARE_SPREAD` of the committed report's
+   (`artifacts/failure_modes_rateFlagCurPure.json`,
+   `artifacts/scripted_recovery.json`); `apps.profile_pretraining` on
+   `k128_full`, `k128_collect_only` and `k128_train_only`, cut in depth to
+   1 and 2 calls in the marginal pair, its FLOPs a super-step counted and
+   `k128_full` placed against phase 9's measured peak (share in (0, 105 %));
+   `apps.bench_scaling --platform cuda --devices 1` (one NCCL process, which
+   reports its own launch counts); and
+   `apps.visualize` offline for 30 steps with `--record` (2 + 30 messages,
+   finite positions). Prints each app's headline numbers and the phase's
+   seconds;
+21. last line: {"ok": true, "device": {...}}.
 
 It imports neither JAX nor the JAX package. Without a CUDA device, or without
 the `raptor_tpu_torch` package beside it, it exits non-zero and prints no
@@ -733,6 +751,158 @@ def learners(torch, dev) -> None:
         raise AssertionError("the learners run no kernel, yet one launched")
 
 
+# phase 20: the analysis apps, the multi-device bench and the visualiser, each
+# at its own defaults unless named here
+FAILURE_REPORT = "artifacts/failure_modes_rateFlagCurPure.json"
+SCRIPTED_REPORT = "artifacts/scripted_recovery.json"
+# largest |share terminated - committed report's| at pi starts. The committed
+# reports were drawn from another random stream, so the two agree in
+# distribution only. On the port's CPU stream (`--device cpu --seed S`, S = 0
+# to 9, of both CLIs at their defaults) the largest |diff| was 0.094
+# (aggregate: 32 airframes, so airframes dominate the spread) and 0.043
+# (crazyflie: 256 starts of one airframe)
+SHARE_SPREAD = {"aggregate": 0.15, "crazyflie": 0.08}
+PROFILE_VARIANTS = ("k128_full", "k128_collect_only", "k128_train_only")
+PROFILE_DEPTH = {"n_lo": 1, "n_hi": 2}  # calls in the marginal pair (the CLI's: 1 and 4)
+VISUALIZE_STEPS = 30
+
+
+def _quiet(fn, *args, **kwargs):
+    """fn's result, with what it prints kept for the caller: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args, **kwargs)
+    return result, buf.getvalue()
+
+
+def _near_report(what, got, committed):
+    for tag, spread in SHARE_SPREAD.items():
+        diff = abs(got[tag]["share_terminated"] - committed[tag]["share_terminated"])
+        print(f"{what}: {tag} share terminated {got[tag]['share_terminated']:.4f} against the "
+              f"committed {committed[tag]['share_terminated']:.4f} (|diff| {diff:.4f}, bound "
+              f"{spread})")
+        if diff > spread:
+            raise AssertionError(f"{what}: {tag} share terminated off the committed report")
+
+
+def analysis_apps(torch, dev, peak_flops_per_s: float) -> None:
+    """Phase 20 (see the module docstring) on `dev`, the card; raises on any
+    failure. Every launch count is set to 0 first: these apps run as eager
+    PyTorch (the roofline share reads phase 9's peak, it does not launch the
+    probe) and must launch no kernel of the port. bench_scaling's super-steps
+    run in processes of their own, which report their launches in the row;
+    they are added to this process's counts."""
+    from raptor_tpu_torch.apps import (
+        bench_scaling, failure_modes, profile_pretraining, recoverability, scripted_recovery,
+        visualize)
+    from raptor_tpu_torch.ops import collect as ops_collect
+    from raptor_tpu_torch.ops import eval as ops_eval
+    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
+    from raptor_tpu_torch.ops import rollout as ops_rollout
+
+    wrappers = (ops_rollout, ops_eval, ops_collect, ops_fma_peak)
+    for w in wrappers:
+        w.launches = 0
+    cuda = ["--device", str(dev)]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the recoverability bound at its default n over its six angles
+        t0 = time.perf_counter()
+        rec, _ = _quiet(recoverability.main, cuda)
+        lb = rec["unrecoverable_lb"]
+        print(f"recoverability: n {rec['n']}, unrecoverable_lb {lb} at angles {rec['angles']} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if len(lb) != 6 or not all(0.0 <= v <= 0.05 for v in lb):
+            raise AssertionError("recoverability: the bound is not about 0 at every angle")
+
+        # failure modes and the scripted controller at their defaults (32
+        # airframes x 8 envs x 500 steps, pi starts)
+        with open(FAILURE_REPORT) as f:
+            committed = json.load(f)
+        t0 = time.perf_counter()
+        fm, _ = _quiet(failure_modes.main, ["--checkpoint", DEPLOY_STUDENT, *cuda])
+        print(f"failure_modes ({time.perf_counter() - t0:.2f} s): "
+              + "; ".join(f"{tag} {fm[tag]['terminated']} of {fm[tag]['episodes']} terminated, "
+                          f"t_term p50 {fm[tag].get('t_term/p50')}, position box "
+                          f"{fm[tag].get('cause/position_box')}, angular rate "
+                          f"{fm[tag].get('cause/angular_rate')}"
+                          for tag in ("aggregate", "crazyflie")))
+        for tag in ("aggregate", "crazyflie"):
+            r = fm[tag]
+            covered = (r.get("cause/position_box", 1.0) + r.get("cause/angular_only", 0.0)
+                       + r.get("cause/nonfinite", 0.0))
+            if r["episodes"] != 256 or covered < 1.0 - 1e-9:
+                raise AssertionError(f"failure_modes: {tag}: a termination without a cause")
+        _near_report("failure_modes", fm, committed)
+        with open(SCRIPTED_REPORT) as f:
+            committed = json.load(f)
+        t0 = time.perf_counter()
+        sr, _ = _quiet(scripted_recovery.main, cuda)
+        print(f"scripted_recovery ({time.perf_counter() - t0:.2f} s): "
+              + "; ".join(f"{tag} share terminated {sr[tag]['share_terminated']:.4f}, mean "
+                          f"survival {sr[tag]['mean_survival']:.2f}"
+                          for tag in ("aggregate", "crazyflie")))
+        _near_report("scripted_recovery", sr, committed)
+
+        # the teacher-farm profile, cut in depth, placed against phase 9's peak
+        t0 = time.perf_counter()
+        prof, _ = _quiet(profile_pretraining.run_variants, PROFILE_VARIANTS, dev, **PROFILE_DEPTH)
+        bad = [r for r in prof["rows"] if "error" in r]
+        if bad:
+            raise AssertionError(f"profile_pretraining: {bad}")
+        flops = profile_pretraining.count_flops(device=dev)
+        profile_pretraining.place_on_roofline(prof, flops, peak_flops_per_s)
+        full = prof["rows"][0]
+        print(f"profile_pretraining ({time.perf_counter() - t0:.2f} s, marginal pair "
+              f"{PROFILE_DEPTH}): "
+              + "; ".join(f"{r['variant']} {r['s_per_super_step']:.4f} s a super-step, "
+                          f"{r['env_steps_per_s']:.0f} env-steps/s" for r in prof["rows"])
+              + f"; collect share {prof['collect_share']:.3f}, train share "
+                f"{prof['train_share']:.3f}; {flops['flops_per_super_step_per_teacher']:.4e} "
+                f"FLOP a super-step a teacher ({flops['method']}); k128_full "
+                f"{full['achieved_tflops']:.4f} TFLOP/s = "
+                f"{100 * full['vpu_f32_roofline_fraction']:.4f} % of the measured FP32 peak "
+                f"{peak_flops_per_s / 1e12:.2f} TFLOP/s")
+        if not 0.0 < full["vpu_f32_roofline_fraction"] < 1.05:
+            raise AssertionError("profile_pretraining: roofline share outside (0, 105 %)")
+
+        # weak scaling: the card shows N = 1, one NCCL process
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "scaling.json")
+        scaling, _ = _quiet(bench_scaling.main, ["--platform", dev.type, "--devices", "1",
+                                                 "--out", out])
+        row = scaling["rows"][0]
+        print(f"bench_scaling ({time.perf_counter() - t0:.2f} s, {scaling['cuda_devices']} "
+              f"card(s)): N = 1, {row['processes']} {row['backend']} process, {row['teachers']} "
+              f"teachers, {row['seconds_per_super_step']:.4f} s a super-step, "
+              f"{row['env_steps_per_s']:.0f} env-steps/s on {row['card']}")
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if row["backend"] != backend or row["processes"] != 1 or not row["env_steps_per_s"] > 0:
+            raise AssertionError(f"bench_scaling: {row}")
+        scaling_launches = row["launches"]
+
+        # the visualiser offline (no websockets on this machine), recording
+        record = os.path.join(tmp, "session.jsonl")
+        _, text = _quiet(visualize.main, [DEPLOY_STUDENT, "--steps", str(VISUALIZE_STEPS),
+                                          "--record", record, "--url",
+                                          "ws://localhost:1/none", *cuda])
+        with open(record) as f:
+            lines = [json.loads(line) for line in f]
+        positions = [s["position"] for m in lines[2:] for s in m["data"]["states"]]
+        print(f"visualize: {text.splitlines()[0]}; {len(lines)} recorded messages")
+        if (len(lines) != 2 + VISUALIZE_STEPS or not all(map(math.isfinite, sum(positions, [])))):
+            raise AssertionError("visualize: the recorded session is not 2 + steps finite frames")
+    launches = {w.__name__.rsplit(".", 1)[1]: w.launches for w in wrappers}
+    launches = {k: v + scaling_launches[k] for k, v in launches.items()}
+    print(f"analysis apps: launches {launches} (bench_scaling's process: {scaling_launches}); "
+          f"phase 20 {time.perf_counter() - t_phase:.1f} s")
+    if any(launches.values()):
+        raise AssertionError("the analysis apps run no kernel, yet one launched")
+
+
 def main() -> int:
     import torch
 
@@ -1298,6 +1468,7 @@ def main() -> int:
     })
     deployment_and_gate(torch, dev)
     learners(torch, dev)
+    analysis_apps(torch, dev, peak["fma_peak_flops_per_s"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -9,11 +9,14 @@ protocol sends JSON channels after a handshake that carries a namespace:
 
 The builders are pure functions over the port's batched `DynamicsParams` and
 `State`; for the same airframes and states their JSON equals the JAX
-package's. The live websocket client is not ported yet.
+package's. `UIClient` drives a live server (`apps/ui_server.py`, or the
+reference's `ui-server`); it imports `websockets` when it connects, so the
+builders need no network package.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Optional, Sequence
 
 import numpy as np
@@ -21,6 +24,9 @@ import torch
 
 from raptor_tpu_torch.env.io import params_to_dict
 from raptor_tpu_torch.env.types import DynamicsParams, State, tree_map
+
+
+DEFAULT_URL = "ws://localhost:13337/backend"
 
 
 def _np(x) -> np.ndarray:
@@ -70,3 +76,41 @@ def state_action_message(namespace: str, states: State, actions: Sequence[Sequen
                  "states": [{k: v[i].tolist() for k, v in fields.items()} for i in range(n)],
                  "actions": [actions[i].tolist() for i in range(n)]},
     }
+
+
+class UIClient:
+    """Async client for a live ui-server:
+
+        async with UIClient() as ui:
+            await ui.set_parameters(params, n_envs=8)
+            await ui.render(states, actions)
+    """
+
+    def __init__(self, url: str = DEFAULT_URL):
+        self.url = url
+        self.namespace: Optional[str] = None
+        self._ws = None
+
+    async def __aenter__(self):
+        import websockets
+
+        self._ws = await websockets.connect(self.url)
+        handshake = json.loads(await self._ws.recv())
+        self.namespace = handshake.get("data", {}).get("namespace", "default")
+        return self
+
+    async def __aexit__(self, *exc):
+        if self._ws is not None:
+            await self._ws.close()
+
+    async def send(self, message: dict):
+        await self._ws.send(json.dumps(message))
+
+    async def set_ui(self, model_url: Optional[str] = None):
+        await self.send(ui_message(self.namespace, model_url))
+
+    async def set_parameters(self, params_stacked: DynamicsParams, n_envs: int):
+        await self.send(parameters_message(self.namespace, params_stacked, n_envs))
+
+    async def render(self, states: State, actions):
+        await self.send(state_action_message(self.namespace, states, actions))

@@ -213,23 +213,28 @@ def collect_scripted(
 
 
 def train(
-    state: TrainerState, run_cfg: RunnerConfig, sac_cfg: sac.SACConfig
+    state: TrainerState, run_cfg: RunnerConfig, sac_cfg: sac.SACConfig, group=None,
 ) -> Tuple[TrainerState, sac.SACMetrics]:
-    """G SAC gradient steps on minibatches from replay."""
+    """G SAC gradient steps on minibatches from replay. With a process group
+    the learner is replicated and `run_cfg.batch_size` is this process's
+    share of each minibatch, drawn from its own ring (`sac.sac_update`)."""
 
     def update(learner, batch):
-        return sac.sac_update(learner, state.generator, batch, sac_cfg)
+        return sac.sac_update(learner, state.generator, batch, sac_cfg, group=group)
 
     state.sac, last = train_steps(run_cfg, update, state.buffer, state.sac, state.generator)
     return state, last
 
 
-def make_super_step(env: L2F, run_cfg: RunnerConfig, sac_cfg: sac.SACConfig):
-    """(state, params) -> (state, metrics): collect H, then train G."""
+def make_super_step(env: L2F, run_cfg: RunnerConfig, sac_cfg: sac.SACConfig, group=None):
+    """(state, params) -> (state, metrics): collect H, then train G. With a
+    process group, `run_cfg` is this process's share (its envs and its share
+    of each minibatch, `parallel.mesh.shard_runner_config`) and the
+    replicated learner averages its gradients over the group."""
 
     def super_step(state: TrainerState, params: DynamicsParams):
         state = collect(state, env, params, run_cfg)
-        return train(state, run_cfg, sac_cfg)
+        return train(state, run_cfg, sac_cfg, group)
 
     return super_step
 

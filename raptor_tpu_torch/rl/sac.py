@@ -20,6 +20,7 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from raptor_tpu_torch.rl import networks
 
@@ -118,11 +119,25 @@ def sac_init(
     return make_state(actor, critic, target, log_alpha, config)
 
 
-def _step(opt: torch.optim.Adam, loss: torch.Tensor) -> None:
+def average_over(group, tensors):
+    """The mean of each tensor over the processes of `group`, in one
+    all_reduce of their concatenation; every process gets the same values."""
+    world = dist.get_world_size(group)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= world
+    return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def _step(opt: torch.optim.Adam, loss: torch.Tensor, group=None) -> None:
     """One Adam step on the gradient of `loss` with respect to the
-    optimizer's leaves, and of nothing else."""
-    leaves = [p for group in opt.param_groups for p in group["params"]]
-    for p, g in zip(leaves, torch.autograd.grad(loss, leaves)):
+    optimizer's leaves, and of nothing else; with a process group, on that
+    gradient averaged over the group's processes."""
+    leaves = [p for group_ in opt.param_groups for p in group_["params"]]
+    grads = torch.autograd.grad(loss, leaves)
+    if group is not None:
+        grads = average_over(group, grads)
+    for p, g in zip(leaves, grads):
         p.grad = g
     opt.step()
     opt.zero_grad(set_to_none=True)
@@ -134,9 +149,16 @@ def sac_update(
     batch: Tuple[torch.Tensor, ...],  # (obs, action, reward, next_obs, done)
     config: SACConfig = SACConfig(),
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    group=None,
 ) -> Tuple[SACState, SACMetrics]:
     """One SAC gradient step on a minibatch [B, d], or on K minibatches
     [K, B, d] for K stacked learners. Updates `state` in place.
+
+    With a process group (`torch.distributed`), `batch` is this process's
+    equal share of the minibatch and the learner is replicated: each
+    gradient is averaged over the group before its Adam step, which equals
+    one step on the whole minibatch, and leaves the learners of all the
+    processes equal. The metrics are averaged too.
 
     `noise` = (eps for the next-state action, eps for the policy action), each
     of the actions' shape, replaces the draws from the generator where given.
@@ -161,18 +183,18 @@ def sac_update(
     q1, q2 = networks.critic_apply(state.critic, obs, action, dtype=dtype, stacked=stacked)
     critic_loss = torch.mean((q1 - target_q) ** 2, -1) + torch.mean((q2 - target_q) ** 2, -1)
     q1_mean = q1.detach().mean(-1)
-    _step(state.critic_opt, critic_loss.sum())
+    _step(state.critic_opt, critic_loss.sum(), group)
 
     # ---- actor update, through the updated critic ----
     pi, logp = networks.actor_sample(state.actor, obs, generator, dtype=dtype, eps=eps_pi)
     pq1, pq2 = networks.critic_apply(state.critic, obs, pi, dtype=dtype, stacked=stacked)
     actor_loss = torch.mean(alpha[..., None] * logp - torch.minimum(pq1, pq2), -1)
     logp = logp.detach()
-    _step(state.actor_opt, actor_loss.sum())
+    _step(state.actor_opt, actor_loss.sum(), group)
 
     # ---- temperature update ----
     alpha_loss = -torch.mean(torch.exp(state.log_alpha)[..., None] * (logp + target_entropy), -1)
-    _step(state.alpha_opt, alpha_loss.sum())
+    _step(state.alpha_opt, alpha_loss.sum(), group)
 
     # ---- polyak target ----
     networks.polyak_(state.target_critic, state.critic, config.tau)
@@ -188,4 +210,6 @@ def sac_update(
         q1_mean=q1_mean,
         entropy=-logp.mean(-1),
     )
+    if group is not None:
+        metrics = SACMetrics(*average_over(group, list(metrics)))
     return state, metrics
