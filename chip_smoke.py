@@ -153,7 +153,24 @@ with a non-zero exit code and no result line:
    `apps.visualize` offline for 30 steps with `--record` (2 + 30 messages,
    finite positions). Prints each app's headline numbers and the phase's
    seconds;
-21. last line: {"ok": true, "device": {...}}.
+21. the repo's tools and the multi-device dry run, with every launch count
+   from 0: `tools.quickstart` with the `rateFlagCurPure` student (five finite
+   lines; B1 launches, and its 20 steps on the quickstart's 256 envs agree
+   with `rollout_plain` on the same inputs: alive and length equal, state
+   within phase 3's 2e-4 / 1e-3); `tools.probe_collect_parity` (1,024 envs,
+   4 steps; B3 launches, its step-1 error under the collect parity gate 1e-4,
+   printed beside the TPU's committed `artifacts/collect_parity_probe.json`);
+   `tools.hover_tail_probe` on that student at 0.2 rad, 32 airframes x 8 envs
+   x 500 steps (B2 launches, and its alive and length equal `eval_plain`'s on
+   the same airframes and states, env by env; the total share terminated,
+   printed beside the committed `artifacts/hover_tail_rateFlagCurPure.json`,
+   is only a sanity check: within `SHARE_SPREAD["aggregate"]`); `tools.arrest_phase_probe`
+   (its three shares inside `ARREST_BANDS`, printed beside the committed
+   report's); `parallel.dryrun.dryrun_multichip(1)` in one NCCL process (its
+   process reports its own launches); and B3 split in this process: two
+   launches on the halves of 2,048 rows with `env_offset` 0 and 1,024 equal to
+   one launch on all rows bit for bit;
+22. last line: {"ok": true, "device": {...}}.
 
 It imports neither JAX nor the JAX package. Without a CUDA device, or without
 the `raptor_tpu_torch` package beside it, it exits non-zero and prints no
@@ -903,6 +920,154 @@ def analysis_apps(torch, dev, peak_flops_per_s: float) -> None:
         raise AssertionError("the analysis apps run no kernel, yet one launched")
 
 
+# phase 21: the repo's tools and the multi-device dry run
+COLLECT_PROBE_REPORT = "artifacts/collect_parity_probe.json"
+HOVER_TAIL_REPORT = "artifacts/hover_tail_rateFlagCurPure.json"
+ARREST_REPORT = "artifacts/arrest_phase_probe.json"
+# the collect parity gate (PERF.md section 2): B3 against the eager loop
+COLLECT_PARITY_GATE = 1e-4
+# bands of the arrest probe's shares, fixed before the first card run: over
+# 20 seeds of the port on the CPU (`tools.arrest_phase_probe --device cpu
+# --seed S`, S = 0 to 19) the shares spanned 0.0263-0.0745 (severe),
+# 0.0568-0.2228 (arrest) and 0.7027-0.9159 (calm): eight airframes a run, so
+# the airframes dominate the spread. Each band is that span widened by half
+# its width on each side (the card draws another stream), clipped to [0, 1].
+ARREST_BANDS = {
+    "share_severe_tilt_gt_1.2": (0.002, 0.099),
+    "share_arrest_tilt_lt_1.2_w_gt_5": (0.0, 0.306),
+    "share_calm": (0.596, 1.0),
+}
+B3_SPLIT_ROWS = 2048
+
+
+def tools_and_dryrun(torch, dev) -> None:
+    """Phase 21 (see the module docstring) on `dev`, the card; raises on any
+    failure. Every launch count is set to 0 first; B1, B2 and B3 must each
+    launch on the tools' paths."""
+    from raptor_tpu_torch.checkpoint import from_numpy, h5
+    from raptor_tpu_torch.env import EnvConfig, InitConfig, L2F, sample_population
+    from raptor_tpu_torch.ops import collect as ops_collect
+    from raptor_tpu_torch.ops import eval as ops_eval
+    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
+    from raptor_tpu_torch.ops import rollout as ops_rollout
+    from raptor_tpu_torch.parallel.dryrun import dryrun_multichip
+    from raptor_tpu_torch.tools import (
+        arrest_phase_probe, hover_tail_probe, probe_collect_parity, quickstart)
+
+    wrappers = (ops_rollout, ops_eval, ops_collect, ops_fma_peak)
+    for w in wrappers:
+        w.launches = 0
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    qs = quickstart.run(DEPLOY_STUDENT, dev, verbose=False)
+    five = [*sum(qs["raptor_action"], []), qs["env_reward_mean"], qs["rollout_mean_length"],
+            qs["sac_critic_loss"]]
+    print(f"quickstart ({time.perf_counter() - t0:.2f} s): action {qs['raptor_action'][0]}, "
+          f"reward mean {qs['env_reward_mean']:.5f}, B1 mean survived steps "
+          f"{qs['rollout_mean_length']:.4f}, SAC critic loss {qs['sac_critic_loss']:.5f}, "
+          f"header {qs['header_lines']} lines; rollout launches {ops_rollout.launches}")
+    if ops_rollout.launches < 1 or not all(map(math.isfinite, five)) or qs["header_lines"] < 20:
+        raise AssertionError("quickstart: B1 did not launch or a line is not finite")
+    # B1 of step 3 against its plain version on the same inputs
+    io = qs["rollout_io"]
+    p_out, p_stats = ops_rollout.rollout_plain(io["params"].to_soa(), io["state"].to_soa(),
+                                               io["action"].T.contiguous(), io["steps"])
+    if not (torch.equal(io["alive"], p_stats[0]) and torch.equal(io["length"], p_stats[1])):
+        raise AssertionError("quickstart: B1's alive or length differ from the plain version's")
+    b1_err = check_close("quickstart B1 state", io["state_out"].to_soa(), p_out, 2e-4, 1e-3)
+    print(f"quickstart: B1 against rollout_plain on the same {p_out.shape[1]} envs x "
+          f"{io['steps']} steps: alive and length equal, state max abs err {b1_err:.3e}")
+
+    t0 = time.perf_counter()
+    probe = probe_collect_parity.run(dev)
+    with open(COLLECT_PROBE_REPORT) as f:
+        tpu = json.load(f)["steps"]
+    print(f"probe_collect_parity ({time.perf_counter() - t0:.2f} s): per channel group, card "
+          f"against the committed TPU report: "
+          + "; ".join(f"{t}: " + ", ".join(f"{k} {row[k]:.3e} ({tpu[t][k]:.3e})" for k in row)
+                      for t, row in probe["steps"].items())
+          + f"; resets {probe['resets_first_steps']}; collect launches {ops_collect.launches}")
+    if ops_collect.launches < 1 or not probe["steps"]["t1"]["max"] < COLLECT_PARITY_GATE:
+        raise AssertionError("probe_collect_parity: B3 did not launch or its step-1 error is "
+                             "over the gate")
+
+    t0 = time.perf_counter()
+    tail_cfg = EnvConfig(init=InitConfig(max_angle=0.2))
+    _, tail_params, tail_state, flights = hover_tail_probe.fly([DEPLOY_STUDENT], tail_cfg, 32, 8,
+                                                               0, dev)
+    alive, length = flights[DEPLOY_STUDENT]
+    share = float(1.0 - alive.mean())
+    with open(HOVER_TAIL_REPORT) as f:
+        committed = json.load(f)["per_airframe"]
+    c_share = sum(r["student_rateFlagCurPure.h5"]["share_terminated"] for r in committed) / 32
+    failing = int((alive < 1).any(1).sum())
+    print(f"hover_tail_probe ({time.perf_counter() - t0:.2f} s): share terminated {share:.4f} "
+          f"against the committed {c_share:.4f} (bound {SHARE_SPREAD['aggregate']}); "
+          f"{failing} of 32 airframes with a termination; eval launches {ops_eval.launches}")
+    if ops_eval.launches < 1 or abs(share - c_share) > SHARE_SPREAD["aggregate"]:
+        raise AssertionError("hover_tail_probe: B2 did not launch or the share is off the report")
+    # B2 of the probe against its plain version on the same airframes and states
+    term = tail_cfg.termination
+    _, p_stats = ops_eval.eval_plain(
+        from_numpy(h5.load_actor(DEPLOY_STUDENT), dev), tail_params.to_soa(),
+        tail_state.to_soa(), tail_cfg.episode_length, tail_cfg.dt, term.position_bound,
+        term.linear_velocity_bound, term.angular_velocity_bound, tail_cfg.reward)
+    n_same = int(((alive.flatten() == p_stats[0]) & (length.flatten() == p_stats[1])).sum())
+    print(f"hover_tail_probe: B2 against eval_plain on the same {alive.numel()} envs x "
+          f"{tail_cfg.episode_length} steps: alive and length equal on {n_same}; the plain "
+          f"version's share terminated {float(1.0 - p_stats[0].mean()):.4f}")
+    if n_same != alive.numel():
+        raise AssertionError("hover_tail_probe: B2's alive or length differ from eval_plain's")
+
+    t0 = time.perf_counter()
+    arrest = arrest_phase_probe.run(dev)
+    with open(ARREST_REPORT) as f:
+        committed = json.load(f)
+    print(f"arrest_phase_probe ({time.perf_counter() - t0:.2f} s): "
+          + ", ".join(f"{k} {arrest[k]:.4f} (committed {committed[k]:.3f}, band {lo}-{hi})"
+                      for k, (lo, hi) in ARREST_BANDS.items()))
+    if not all(lo <= arrest[k] <= hi for k, (lo, hi) in ARREST_BANDS.items()):
+        raise AssertionError("arrest_phase_probe: a share outside its band")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, platform=dev.type)
+    (r0,) = dry["ranks"]
+    print(f"dryrun_multichip(1) ({time.perf_counter() - t0:.2f} s, {dry['backend']}, "
+          f"{dry['card']}): seconds {r0['seconds']}, SAC critic loss {r0['sac_critic_loss']:.5f}, "
+          f"distillation losses {r0['distill_losses']}, B3 gathered equals one launch "
+          f"{r0['b3_equals_one_launch']}; its process's launches {dry['launches']}")
+    if dry["backend"] != "nccl" or dry["launches"]["collect"] < 1 or not all(
+            map(math.isfinite, [r0["sac_critic_loss"], *r0["distill_losses"]])):
+        raise AssertionError(f"dryrun_multichip(1): {dry}")
+
+    # B3 split in one process: the env ids of the second half offset by 1,024
+    policy = from_numpy(h5.load_actor(DEPLOY_STUDENT), dev)
+    weights = ops_eval.flatten_policy(policy)
+    g = torch.Generator(device=dev).manual_seed(21)
+    frames = sample_population(g, B3_SPLIT_ROWS)
+    short = EnvConfig(episode_length=8)
+    ps = frames.to_soa()
+    ss = L2F(short).sample_state(frames, g).to_soa()
+    half = B3_SPLIT_ROWS // 2
+    whole_obs, whole_reset = ops_collect.collect_soa(weights, ps, ss, 20, 3, 0, short)
+    parts = [ops_collect.collect_soa(weights, ps[:, sl].contiguous(), ss[:, sl].contiguous(), 20,
+                                     3, off, short)
+             for sl, off in ((slice(0, half), 0), (slice(half, None), half))]
+    equal = (torch.equal(torch.cat([p[0] for p in parts], 1), whole_obs)
+             and torch.equal(torch.cat([p[1] for p in parts], 1), whole_reset))
+    print(f"B3 split: two launches of {half} rows (env_offset 0 and {half}) against one of "
+          f"{B3_SPLIT_ROWS}, 20 steps, episodes of 8: bit for bit {equal}, resets "
+          f"{float(whole_reset.mean()):.4f} of rows")
+    if not equal or float(whole_reset.mean()) == 0.0:
+        raise AssertionError("B3 split: the halves differ from one launch on all rows")
+    launches = {w.__name__.rsplit(".", 1)[1]: w.launches for w in wrappers}
+    print(f"tools and dry run: launches {launches} (the dry run's process: {dry['launches']}); "
+          f"phase 21 {time.perf_counter() - t_phase:.1f} s")
+    if min(launches["rollout"], launches["eval"], launches["collect"]) < 1:
+        raise AssertionError(f"phase 21: a kernel of the tools' paths never launched: {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -1469,6 +1634,7 @@ def main() -> int:
     deployment_and_gate(torch, dev)
     learners(torch, dev)
     analysis_apps(torch, dev, peak["fma_peak_flops_per_s"])
+    tools_and_dryrun(torch, dev)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

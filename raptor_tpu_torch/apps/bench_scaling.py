@@ -29,15 +29,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import socket
-import subprocess
 import sys
 import time
 
 import torch
 
 from raptor_tpu_torch.apps.roofline import card_name_and_power_limit
-from raptor_tpu_torch.parallel.multihost import scaling_report
+from raptor_tpu_torch.parallel.multihost import run_processes, scaling_report
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 FLAGS = ("teachers_per_device", "envs_per_teacher", "rollout_length", "gradient_steps",
@@ -140,37 +138,17 @@ def _worker(n_devices: int, rank: int, port: int, args) -> dict:
     return row
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _run_processes(n: int, args) -> dict:
-    """Start the n processes of one device count; rank 0's row, or an error
+    """Run the n processes of one device count; rank 0's row, or an error
     row."""
-    port = _free_port()
-    base = [sys.executable, "-m", "raptor_tpu_torch.apps.bench_scaling", "--worker", str(n),
-            "--port", str(port), "--platform", args.platform]
+    argv = ["--platform", args.platform]
     for flag in FLAGS:
-        base += ["--" + flag.replace("_", "-"), str(getattr(args, flag))]
-    procs = [subprocess.Popen(base + ["--rank", str(r)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, cwd=ROOT) for r in range(n)]
-    outs = []
+        argv += ["--" + flag.replace("_", "-"), str(getattr(args, flag))]
     try:
-        for proc in procs:
-            outs.append(proc.communicate(timeout=args.timeout))
-    except subprocess.TimeoutExpired:
-        return {"devices": n, "error": "timeout"}
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    bad = [(proc.returncode, err) for proc, (_, err) in zip(procs, outs) if proc.returncode]
-    if bad:
-        return {"devices": n, "error": f"rc {bad[0][0]}: {bad[0][1].strip()[-500:]}"}
-    return json.loads(outs[0][0].strip().splitlines()[-1])
+        outs = run_processes(n, "raptor_tpu_torch.apps.bench_scaling", argv, args.timeout, ROOT)
+    except RuntimeError as e:
+        return {"devices": n, "error": str(e)}
+    return json.loads(outs[0].strip().splitlines()[-1])
 
 
 def main(argv=None):

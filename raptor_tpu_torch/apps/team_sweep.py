@@ -75,20 +75,31 @@ def _time_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def _ptxas(log: str) -> dict:
-    """kernel (mangled name) -> [registers, spill stores + loads] from nvcc's log."""
+def kernel_key(mangled: str):
+    """"rollout_kernel", "eval_kernel<H>" or "collect_kernel<H>" for a
+    mangled kernel name, else None. The mangled names carry a hash of the
+    source's anonymous namespace, which differs between checkouts."""
+    m = re.search(r"(rollout|eval|collect)_kernel(?:ILi(\d+)E)?", mangled)
+    if not m:
+        return None
+    return f"{m.group(1)}_kernel" + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def ptxas_counts(log: str) -> dict:
+    """`kernel_key` -> [registers, spill stores + loads] of every rollout, eval
+    and collect kernel in nvcc's log."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
+            name = kernel_key(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             out.setdefault(name, [None, 0])[1] = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.setdefault(name, [None, 0])[0] = int(m.group(1))
-    return {k: v for k, v in out.items() if "rollout" in k or "eval" in k or "collect" in k}
+    return out
 
 
 def worker(policy_only: bool = False) -> dict:
@@ -175,7 +186,7 @@ def worker(policy_only: bool = False) -> dict:
             torch, lambda: ops_collect.collect_soa(weights, c_ps, c_ss, T_COLLECT, 0)),
         "collect_944_ms": _time_ms(
             torch, lambda: ops_collect.collect_soa(weights, r_ps, r_ss, T_COLLECT, 0)),
-        "ptxas": _ptxas(build.cuda_build_log()),
+        "ptxas": ptxas_counts(build.cuda_build_log()),
     }
 
 

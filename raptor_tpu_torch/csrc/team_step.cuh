@@ -451,6 +451,55 @@ RAPTOR_HD void gru_lane(const Vec4* Wt, int l, const float* x, const float* h,
   }
 }
 
+// One policy step of the team's envs, shared by team_eval_env and
+// team_collect_env: from each lane's x_own = relu(dense_0 obs) of its units,
+// the GRU's new hidden state (h_new whole, h_new_own the lane's units), the
+// head's partial sums added over the team, the clipped action and the rpm
+// setpoints of the lane's rotors.
+template <class Team, int H>
+RAPTOR_HD void team_policy_step(const Team& tm, const Vec4* Wt, const LaneParams* lp,
+                                const float (*x_own)[TeamLayout<H, Team::SIZE>::U],
+                                const float (*h)[H],
+                                const float (*h_own)[TeamLayout<H, Team::SIZE>::U],
+                                float (*x)[H],
+                                float (*h_new_own)[TeamLayout<H, Team::SIZE>::U],
+                                float (*h_new)[H], float (*act)[ACT],
+                                float (*sp)[TeamShape<Team::SIZE>::R]) {
+  constexpr int N = Team::N, K = Team::SIZE;
+  using S = TeamShape<K>;
+  using T = TeamLayout<H, K>;
+  constexpr int R = S::R, U = T::U;
+  float part[ACT][N];
+  tm.template gather<U>(x_own, x);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int l = tm.lane(j);
+    gru_lane<H, K>(Wt, l, x[j], h[j], h_own[j], h_new_own[j]);
+#pragma unroll
+    for (int a = 0; a < ACT; ++a) part[a][j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < U; ++c) {
+      const Vec4 w2 = load4(Wt + (T::W2 + c) * K + l);
+      part[0][j] += w2.x * h_new_own[j][c];
+      part[1][j] += w2.y * h_new_own[j][c];
+      part[2][j] += w2.z * h_new_own[j][c];
+      part[3][j] += w2.w * h_new_own[j][c];
+    }
+  }
+  tm.template gather<U>(h_new_own, h_new);
+#pragma unroll
+  for (int a = 0; a < ACT; ++a) tm.template sum<K>(part[a]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int l = tm.lane(j);
+    const Vec4 b2 = load4(Wt + T::B2 * K + l);
+#pragma unroll
+    for (int a = 0; a < ACT; ++a) act[j][a] = clip(comp(b2, a) + part[a][j], -1.f, 1.f);
+#pragma unroll
+    for (int k = 0; k < R; ++k) sp[j][k] = lane_setpoint(lp[j], pick4(act[j], S::rotor(l, k)));
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the per-env loops
 // ---------------------------------------------------------------------------
@@ -538,7 +587,7 @@ RAPTOR_HD void team_eval_env(const Team& tm, long i, long n, const Vec4* Wt,
   LaneParams lp[N];
   float s[N][COMMON], u[N][R], sp[N][R], s2[N][COMMON], u2[N][R];
   float h[N][H], h_new[N][H], h_own[N][U], h_new_own[N][U], x_own[N][U], x[N][H];
-  float prev[N][ACT], act[N][ACT], part[ACT][N], hover[N], ret[N];
+  float prev[N][ACT], act[N][ACT], hover[N], ret[N];
   int done[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -565,34 +614,7 @@ RAPTOR_HD void team_eval_env(const Team& tm, long i, long n, const Vec4* Wt,
       observe22(s[j], prev[j], obs);
       dense0_lane<H, K>(Wt, tm.lane(j), obs, x_own[j]);
     }
-    tm.template gather<U>(x_own, x);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int l = tm.lane(j);
-      gru_lane<H, K>(Wt, l, x[j], h[j], h_own[j], h_new_own[j]);
-#pragma unroll
-      for (int a = 0; a < ACT; ++a) part[a][j] = 0.f;
-#pragma unroll
-      for (int c = 0; c < U; ++c) {
-        const Vec4 w2 = load4(Wt + (T::W2 + c) * K + l);
-        part[0][j] += w2.x * h_new_own[j][c];
-        part[1][j] += w2.y * h_new_own[j][c];
-        part[2][j] += w2.z * h_new_own[j][c];
-        part[3][j] += w2.w * h_new_own[j][c];
-      }
-    }
-    tm.template gather<U>(h_new_own, h_new);
-#pragma unroll
-    for (int a = 0; a < ACT; ++a) tm.template sum<K>(part[a]);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int l = tm.lane(j);
-      const Vec4 b2 = load4(Wt + T::B2 * K + l);
-#pragma unroll
-      for (int a = 0; a < ACT; ++a) act[j][a] = clip(comp(b2, a) + part[a][j], -1.f, 1.f);
-#pragma unroll
-      for (int k = 0; k < R; ++k) sp[j][k] = lane_setpoint(lp[j], pick4(act[j], S::rotor(l, k)));
-    }
+    team_policy_step<Team, H>(tm, Wt, lp, x_own, h, h_own, x, h_new_own, h_new, act, sp);
     team_rk4(tm, lp, s, u, sp, dt, s2, u2);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -666,7 +688,7 @@ RAPTOR_HD void team_collect_env(const Team& tm, long i, long n, const Vec4* Wt,
   LaneParams lp[N];
   float s[N][COMMON], u[N][R], sp[N][R], s2[N][COMMON], u2[N][R];
   float h[N][H], h_new[N][H], h_own[N][U], h_new_own[N][U], x_own[N][U], x[N][H];
-  float prev[N][ACT], act[N][ACT], part[ACT][N];
+  float prev[N][ACT], act[N][ACT];
   int done[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -698,35 +720,7 @@ RAPTOR_HD void team_collect_env(const Team& tm, long i, long n, const Vec4* Wt,
       }
       dense0_lane<H, K>(Wt, l, obs, x_own[j]);
     }
-    // the policy as in team_eval_env
-    tm.template gather<U>(x_own, x);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int l = tm.lane(j);
-      gru_lane<H, K>(Wt, l, x[j], h[j], h_own[j], h_new_own[j]);
-#pragma unroll
-      for (int a = 0; a < ACT; ++a) part[a][j] = 0.f;
-#pragma unroll
-      for (int c = 0; c < U; ++c) {
-        const Vec4 w2 = load4(Wt + (T::W2 + c) * K + l);
-        part[0][j] += w2.x * h_new_own[j][c];
-        part[1][j] += w2.y * h_new_own[j][c];
-        part[2][j] += w2.z * h_new_own[j][c];
-        part[3][j] += w2.w * h_new_own[j][c];
-      }
-    }
-    tm.template gather<U>(h_new_own, h_new);
-#pragma unroll
-    for (int a = 0; a < ACT; ++a) tm.template sum<K>(part[a]);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int l = tm.lane(j);
-      const Vec4 b2 = load4(Wt + T::B2 * K + l);
-#pragma unroll
-      for (int a = 0; a < ACT; ++a) act[j][a] = clip(comp(b2, a) + part[a][j], -1.f, 1.f);
-#pragma unroll
-      for (int k = 0; k < R; ++k) sp[j][k] = lane_setpoint(lp[j], pick4(act[j], S::rotor(l, k)));
-    }
+    team_policy_step<Team, H>(tm, Wt, lp, x_own, h, h_own, x, h_new_own, h_new, act, sp);
     team_rk4(tm, lp, s, u, sp, dt, s2, u2);
     const float t2 = tcount + 1.f;
 #pragma unroll

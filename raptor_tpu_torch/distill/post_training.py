@@ -23,6 +23,15 @@ aggregate is updated in place too. Randomness comes from one explicit
 `torch.Generator` on the data's device, so the random streams differ from the
 JAX package's threefry keys. `fused_collect_round` collects a beta == 0 round
 through the collect kernel (`ops/collect.py`) and one batched relabel pass.
+
+Over several devices (one process a device, `parallel/`), each process
+collects its block of the ('pop', 'env') layout with `make_collect` (its
+block of the teachers and of each teacher's envs, `parallel.mesh.
+distill_block`), keeps its block of the aggregate's columns
+(`parallel.mesh.shard_distill_config`), and trains the replicated student on
+its share of each minibatch with the gradients averaged over the group
+(`make_train_from_aggregate(cfg, group)`). `distill()` itself runs on one
+device, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import time
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from raptor_tpu_torch.distill.population import broadcast_airframe_to_envs, flatten_envs
 from raptor_tpu_torch.env.quad import L2F
@@ -40,6 +50,7 @@ from raptor_tpu_torch.env.recovery import recovery_action, tilt_angle
 from raptor_tpu_torch.env.types import POLICY_OBS_DIM, DynamicsParams, tree_map
 from raptor_tpu_torch.policy import network as student_net
 from raptor_tpu_torch.rl import networks
+from raptor_tpu_torch.rl.sac import average_over
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,10 +184,16 @@ def make_labeler(env: L2F, cfg: DistillConfig):
     return label_fn
 
 
-def make_collect(env: L2F, cfg: DistillConfig):
+def make_collect(env: L2F, cfg: DistillConfig, env_block: Tuple[int, int] = (0, 1)):
     """Round collection: (student_params, teacher_actors [K], env_params
     [K, M], generator, beta, norm=None) -> RoundData. An eager loop of
-    cfg.rollout_length env steps; no gradient is recorded."""
+    cfg.rollout_length env steps; no gradient is recorded.
+
+    `env_block` = (index, count) says that the M envs a teacher has here are
+    block `index` of `count` equal blocks of its envs (a process's block,
+    `parallel.mesh.distill_block`): the demonstrator-driven envs are then the
+    first round(demo_rollout_frac * M * count) of the whole block row, as in
+    one process."""
     label_fn = make_labeler(env, cfg)
     use_demo = cfg.demo_tilt > 0.0 or cfg.demo_rollout_frac > 0.0
     demo_fn = make_demo_fn(cfg) if use_demo else None
@@ -188,8 +205,9 @@ def make_collect(env: L2F, cfg: DistillConfig):
         dev = flat_params.mass.device
         # demonstrator-driven envs: the first d of each teacher's M-block
         # execute the scripted expert for the whole collect
-        d_per = int(round(cfg.demo_rollout_frac * m))
-        demo_driven = ((torch.arange(k * m, device=dev) % m) < d_per)[:, None]
+        index, count = env_block
+        d_per = int(round(cfg.demo_rollout_frac * m * count))
+        demo_driven = ((torch.arange(k * m, device=dev) % m + index * m) < d_per)[:, None]
         es, obs = env.reset(flat_params, generator)
         h0 = student_net.initial_hidden(student_params, k * m)
         h = h0
@@ -309,16 +327,26 @@ def severe_mask(obs: torch.Tensor, tilt: float) -> torch.Tensor:
 
 
 def bptt_loss(student_params, obs, teacher_action, reset, norm=None,
-              severe_weight: float = 1.0, severe_tilt: float = 1.2):
+              severe_weight: float = 1.0, severe_tilt: float = 1.2, group=None):
     """Scalar MSE of bptt_actions against the teacher labels. With
     severe_weight != 1, frames tilted past severe_tilt get that weight in a
-    weight-normalized MSE."""
+    weight-normalized MSE.
+
+    With a process group, `obs` is this process's equal share of the
+    minibatch, and the loss is scaled so that its mean over the group is the
+    loss of the whole minibatch: the plain MSE is already so, and the
+    weighted one is normalized by the group's total weight (an all_reduce of
+    a number the parameters do not change) times the group's size."""
     actions = bptt_actions(student_params, obs, reset, norm)
     err2 = (actions - teacher_action) ** 2
     if severe_weight != 1.0:
         w = torch.where(severe_mask(obs, severe_tilt), severe_weight, 1.0)
-        return torch.sum(err2 * w[..., None]) / (
-            torch.clamp(torch.sum(w), min=1.0) * err2.shape[-1]
+        total, scale = torch.sum(w), 1.0
+        if group is not None:
+            dist.all_reduce(total, group=group)
+            scale = float(dist.get_world_size(group))
+        return scale * torch.sum(err2 * w[..., None]) / (
+            torch.clamp(total, min=1.0) * err2.shape[-1]
         )
     return torch.mean(err2)
 
@@ -459,23 +487,41 @@ def make_optimizer(cfg: DistillConfig):
     return init
 
 
-def _grad_step(student_params, opt, obs, lab, rst, norm, cfg: DistillConfig):
-    """One BPTT gradient step; leaves the gradients cleared."""
+def _grad_step(student_params, opt, obs, lab, rst, norm, cfg: DistillConfig, group=None):
+    """One BPTT gradient step; leaves the gradients cleared. With a process
+    group, the gradient of every leaf Adam steps (h0 included) and the loss
+    are averaged over the group, in one all_reduce, before the step: the
+    replicated students stay equal bit for bit."""
     adam, scheduler = opt
-    loss = bptt_loss(student_params, obs, lab, rst, norm, cfg.severe_weight, cfg.severe_tilt)
+    loss = bptt_loss(student_params, obs, lab, rst, norm, cfg.severe_weight, cfg.severe_tilt,
+                     group)
     loss.backward()
+    loss = loss.detach()
+    if group is not None:
+        leaves = [p for g in adam.param_groups for p in g["params"]]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+        *grads, loss = average_over(group, [*grads, loss])
+        for p, g in zip(leaves, grads):
+            p.grad = g
     adam.step()
     scheduler.step()
     adam.zero_grad(set_to_none=True)
-    return loss.detach()
+    return loss
 
 
-def make_train_from_aggregate(cfg: DistillConfig):
+def make_train_from_aggregate(cfg: DistillConfig, group=None):
     """Per-round trainer: cfg.grad_steps_per_round minibatch Adam steps, each
     sampling batch_size sequences uniformly from the aggregate's valid prefix
     and running full-sequence BPTT. Returns (train_round, optimizer init);
     train_round(student, opt, agg, generator, norm) -> (student, opt, losses
-    [steps]) updates the student in place."""
+    [steps]) updates the student in place.
+
+    With a process group, `cfg` is this process's share
+    (`parallel.mesh.shard_distill_config`): each process draws its
+    batch_size columns from its own block of the aggregate with its own
+    generator, and the replicated student steps on the gradient averaged
+    over the group (`_grad_step`). The learning-rate schedule steps alike on
+    every process, and the losses are the group's."""
 
     def train_round(student_params, opt, agg: Aggregate, generator, norm=None):
         losses = []
@@ -486,6 +532,7 @@ def make_train_from_aggregate(cfg: DistillConfig):
             losses.append(_grad_step(
                 student_params, opt, agg.obs[:, bidx].float(),
                 agg.teacher_action[:, bidx].float(), agg.reset[:, bidx].float(), norm, cfg,
+                group,
             ))
         return student_params, opt, torch.stack(losses)
 
@@ -511,6 +558,14 @@ def make_train_epoch(cfg: DistillConfig):
 
     constant = dataclasses.replace(cfg, total_grad_steps=0)
     return train_epoch, make_optimizer(constant)
+
+
+def draw_round_teachers(generator: torch.Generator, k_total: int, k_sub: int) -> torch.Tensor:
+    """The K_sub teachers of one round, a random subset of the K_total:
+    the first K_sub of a permutation drawn from `generator`. Over several
+    processes every process draws the same subset from a generator seeded
+    alike everywhere and takes its block (`parallel.mesh.round_teacher_block`)."""
+    return torch.randperm(k_total, generator=generator, device=generator.device)[:k_sub]
 
 
 def _detached(student_params):
@@ -594,8 +649,7 @@ def distill(
     for r in range(n_rounds):
         beta = teacher_mix(cfg, r)
         if subsample:
-            idx = torch.randperm(k_total, generator=generator, device=dev)[:k_sub]
-            actors_r, params_r = take(idx)
+            actors_r, params_r = take(draw_round_teachers(generator, k_total, k_sub))
         else:
             actors_r, params_r = teacher_actors, env_params
         t0 = time.perf_counter()

@@ -12,7 +12,12 @@ order a `NamedSharding` uses (process r of n holds rows [r n_rows / n,
     the gradients of the processes' minibatch shares (`rl.sac.sac_update`'s
     `group`), which equals one update on the whole minibatch;
   - 'pop': the teacher-population axis; each process trains its block of
-    the K learners, which needs no collective except for the metrics.
+    the K learners, which needs no collective except for the metrics;
+  - distillation on ('pop', 'env'): each process collects its block of the
+    teachers and of their envs (`distill_block`), keeps its block of the
+    aggregate (`shard_distill_config`), and the replicated student averages
+    its gradients over the group
+    (`distill.post_training.make_train_from_aggregate(cfg, group)`).
 
 The mesh is a record of that layout (`Mesh`): JAX's axis names and shape and
 this process's place in it, rank r at row-major coordinates. The collectives
@@ -30,7 +35,9 @@ import torch
 import torch.distributed as dist
 
 from raptor_tpu_torch.env.types import tree_map
-from raptor_tpu_torch.parallel.multihost import host_generator, process_count, process_index
+from raptor_tpu_torch.parallel.multihost import (
+    host_generator, make_global_array, process_count, process_index)
+from raptor_tpu_torch.rl import networks
 from raptor_tpu_torch.utils.state_checkpoint import leaves_with_path
 
 
@@ -133,6 +140,73 @@ def shard_runner_config(run_cfg, mesh):
                          f"over {n} devices")
     return dataclasses.replace(run_cfg, n_envs=run_cfg.n_envs // n,
                                batch_size=run_cfg.batch_size // n)
+
+
+def shard_distill_config(cfg, mesh):
+    """This process's share of a `distill.post_training.DistillConfig` on a
+    ('pop', 'env') mesh of N processes: its block of each teacher's envs (M /
+    env), of each round's teachers (K_sub / pop), of the aggregate's columns
+    (C / N) and of each minibatch (B / N). Raises ValueError where one does
+    not divide."""
+    n_pop, n_env = mesh.size("pop"), mesh.size("env")
+    n = n_pop * n_env
+    shares = {"envs_per_teacher": (cfg.envs_per_teacher, n_env),
+              "teachers_per_round": (cfg.teachers_per_round, n_pop),
+              "aggregate_capacity": (cfg.aggregate_capacity, n),
+              "batch_size": (cfg.batch_size, n)}
+    bad = [f"{name} {total} over {parts}" for name, (total, parts) in shares.items()
+           if total % parts]
+    if bad:
+        raise ValueError(f"the distillation config does not split: {', '.join(bad)}")
+    return dataclasses.replace(cfg, **{name: total // parts
+                                       for name, (total, parts) in shares.items()})
+
+
+def distill_block(teacher_actors, env_params, mesh):
+    """This process's block of a distillation population on a ('pop', 'env')
+    mesh: teachers [K] split on 'pop', airframes [K, M] on 'pop' and their
+    envs on 'env', as (actors [K / pop], env_params [K / pop, M / env]).
+    `distill.post_training.make_collect(env, cfg, env_block=(mesh.index("env"),
+    mesh.size("env")))` collects it."""
+    own = local_block(torch.arange(networks.n_actors(teacher_actors),
+                                   device=env_params.mass.device), mesh, 0, "pop")
+    actors = networks.take_actors(teacher_actors, own)
+    params = shard_env_pytree(shard_env_pytree(env_params, mesh, 0, "pop"), mesh, 1, "env")
+    return actors, params
+
+
+def round_teacher_block(teacher_actors, env_params, idx: torch.Tensor, mesh):
+    """One round's teacher subsample on a ('pop', 'env') mesh: `idx` [K_sub]
+    are the round's teachers, drawn alike on every process
+    (`distill.post_training.draw_round_teachers` from a generator seeded
+    alike everywhere, not a `host_generator`), and this process takes its
+    'pop' block of them. The teachers' actors and airframes are small (the
+    six hover-gate packs hold about 17 MB), so every process holds all K of
+    them, replicated, and the subset is indexed locally instead of gathered.
+    Returns (actors [K_sub / pop], env_params [K_sub / pop, M / env], the
+    process's envs as in `distill_block`); raises ValueError where K_sub
+    does not split over 'pop'."""
+    n_pop = mesh.size("pop")
+    if idx.shape[0] % n_pop:
+        raise ValueError(f"{idx.shape[0]} teachers a round do not split over {n_pop} 'pop' "
+                         "devices")
+    own = local_block(idx, mesh, 0, "pop")
+    params = shard_env_pytree(tree_map(lambda x: x[own], env_params), mesh, 1, "env")
+    return networks.take_actors(teacher_actors, own), params
+
+
+def gather_distill_columns(x: torch.Tensor, mesh, k_local: int, axis: int = 1) -> torch.Tensor:
+    """The population's columns from every process's block of a
+    ('pop', 'env') mesh: `x` holds along `axis` this process's K / pop
+    teachers x M / env envs (teacher-major, as `make_collect` returns them);
+    the result holds all K x M in one process's order, teacher-major."""
+    n_pop, n_env = mesh.size("pop"), mesh.size("env")
+    moved = x.movedim(axis, 0)
+    m_local = moved.shape[0] // k_local
+    full = make_global_array(moved, 0)  # [pop * env * Kl * Ml, ...], rank order
+    rest = moved.shape[1:]
+    full = full.reshape(n_pop, n_env, k_local, m_local, *rest).transpose(1, 2)
+    return full.reshape(n_pop * k_local * n_env * m_local, *rest).movedim(0, axis)
 
 
 def shard_trainer_state(state, mesh):

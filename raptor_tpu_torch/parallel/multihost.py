@@ -14,7 +14,10 @@ stream a single process draws.
 from __future__ import annotations
 
 import os
-from typing import Optional
+import socket
+import subprocess
+import sys
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -91,6 +94,41 @@ def make_global_array(local: torch.Tensor, axis: int = 0, group=None) -> torch.T
     out = moved.new_empty((world * moved.shape[0], *moved.shape[1:]))
     dist.all_gather_into_tensor(out, moved, group=group)
     return out.movedim(0, axis)
+
+
+def free_port() -> int:
+    """A TCP port on localhost that is free now (for a process group's
+    coordinator)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(n: int, module: str, argv: Sequence[str], timeout: float,
+                  cwd: Optional[str] = None) -> List[str]:
+    """Run `python -m module *argv --worker n --port P --rank r` for r = 0 ..
+    n - 1 at once, P a free port for their process group, and return their
+    standard outputs in rank order. Raises RuntimeError where one process
+    fails or the time runs out; no process outlives the call."""
+    port = free_port()
+    base = [sys.executable, "-m", module, *argv, "--worker", str(n), "--port", str(port)]
+    procs = [subprocess.Popen(base + ["--rank", str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=cwd) for r in range(n)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout))
+    except subprocess.TimeoutExpired:
+        raise RuntimeError("timeout") from None
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    bad = [(proc.returncode, err) for proc, (_, err) in zip(procs, outs) if proc.returncode]
+    if bad:
+        raise RuntimeError(f"rc {bad[0][0]}: {bad[0][1].strip()[-500:]}")
+    return [out for out, _ in outs]
 
 
 def scaling_report(steps_per_s_1: float, steps_per_s_n: float, n: int) -> dict:
