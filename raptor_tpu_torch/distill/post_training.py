@@ -51,6 +51,7 @@ from raptor_tpu_torch.env.types import POLICY_OBS_DIM, DynamicsParams, tree_map
 from raptor_tpu_torch.policy import network as student_net
 from raptor_tpu_torch.rl import networks
 from raptor_tpu_torch.rl.sac import average_over
+from raptor_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -493,9 +494,11 @@ def _grad_step(student_params, opt, obs, lab, rst, norm, cfg: DistillConfig, gro
     are averaged over the group, in one all_reduce, before the step: the
     replicated students stay equal bit for bit."""
     adam, scheduler = opt
-    loss = bptt_loss(student_params, obs, lab, rst, norm, cfg.severe_weight, cfg.severe_tilt,
-                     group)
-    loss.backward()
+    with span("distill.forward"):
+        loss = bptt_loss(student_params, obs, lab, rst, norm, cfg.severe_weight,
+                         cfg.severe_tilt, group)
+    with span("distill.backward"):
+        loss.backward()
     loss = loss.detach()
     if group is not None:
         leaves = [p for g in adam.param_groups for p in g["params"]]
@@ -503,9 +506,10 @@ def _grad_step(student_params, opt, obs, lab, rst, norm, cfg: DistillConfig, gro
         *grads, loss = average_over(group, [*grads, loss])
         for p, g in zip(leaves, grads):
             p.grad = g
-    adam.step()
-    scheduler.step()
-    adam.zero_grad(set_to_none=True)
+    with span("distill.optimizer"):
+        adam.step()
+        scheduler.step()
+        adam.zero_grad(set_to_none=True)
     return loss
 
 
@@ -526,14 +530,14 @@ def make_train_from_aggregate(cfg: DistillConfig, group=None):
     def train_round(student_params, opt, agg: Aggregate, generator, norm=None):
         losses = []
         for _ in range(cfg.grad_steps_per_round):
-            bidx = torch.randint(
-                0, max(agg.size, 1), (cfg.batch_size,), generator=generator, device=agg.obs.device
-            )
-            losses.append(_grad_step(
-                student_params, opt, agg.obs[:, bidx].float(),
-                agg.teacher_action[:, bidx].float(), agg.reset[:, bidx].float(), norm, cfg,
-                group,
-            ))
+            with span("distill.step"):
+                with span("distill.gather"):
+                    bidx = torch.randint(0, max(agg.size, 1), (cfg.batch_size,),
+                                         generator=generator, device=agg.obs.device)
+                    obs, lab, rst = (agg.obs[:, bidx].float(),
+                                     agg.teacher_action[:, bidx].float(),
+                                     agg.reset[:, bidx].float())
+                losses.append(_grad_step(student_params, opt, obs, lab, rst, norm, cfg, group))
         return student_params, opt, torch.stack(losses)
 
     return train_round, make_optimizer(cfg)
@@ -573,13 +577,6 @@ def _detached(student_params):
         layer: {k: v.detach().clone() for k, v in tensors.items()}
         for layer, tensors in student_params.items()
     }
-
-
-def _seconds(device: torch.device, t0: float) -> float:
-    """Host seconds since t0, after the device has finished its queue."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter() - t0
 
 
 def distill(
@@ -643,6 +640,14 @@ def distill(
         if log_fn is not None:
             log_fn(tag, value, step)
 
+    def log_seconds(tag, t0, step):
+        """Host seconds since t0, after the device has finished its queue;
+        neither synchronized nor read without a log_fn."""
+        if log_fn is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            log_fn(tag, time.perf_counter() - t0, step)
+
     loss_history: List[float] = []
     grad_step = 0
     env_steps = 0
@@ -660,15 +665,15 @@ def distill(
             # training, not a running statistic
             norm = fit_norm(data.obs)
         env_steps += cfg.rollout_length * data.obs.shape[1]
-        log("seconds/collect", _seconds(dev, t0), env_steps)
+        log_seconds("seconds/collect", t0, env_steps)
         if aggregated:
             t0 = time.perf_counter()
             agg = agg_add(agg, data, generator)
-            log("seconds/aggregate_add", _seconds(dev, t0), env_steps)
+            log_seconds("seconds/aggregate_add", t0, env_steps)
             t0 = time.perf_counter()
             student, opt, losses = train_round(student, opt, agg, generator, norm)
             losses = losses.tolist()
-            log("seconds/train", _seconds(dev, t0), env_steps)
+            log_seconds("seconds/train", t0, env_steps)
             # a decimated loss series (the full one is a point per gradient step)
             stride = max(1, len(losses) // 64)
             for j in range(0, len(losses), stride):
@@ -686,7 +691,7 @@ def distill(
                     log("loss", loss, grad_step)
                     grad_step += 1
                 loss_history.append(losses[-1])
-            log("seconds/train", _seconds(dev, t0), env_steps)
+            log_seconds("seconds/train", t0, env_steps)
         if cfg.diagnostics and log_fn is not None:
             fresh = diag_fresh(student, data, norm)
             pidx = torch.randperm(k_total, generator=generator, device=dev)[:n_probe]

@@ -30,6 +30,7 @@ from raptor_tpu_torch.env.types import (
     observation_dim,
     where,
 )
+from raptor_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -172,6 +173,14 @@ class L2F:
     def reset(
         self, params: DynamicsParams, generator: torch.Generator
     ) -> Tuple[EnvState, torch.Tensor]:
+        with span("env.reset"):
+            return self._reset(params, generator)
+
+    def _reset(
+        self, params: DynamicsParams, generator: torch.Generator
+    ) -> Tuple[EnvState, torch.Tensor]:
+        """`reset` without its span: `step` draws the auto-reset states every
+        time step."""
         state = self.sample_state(params, generator)
         n = state.position.shape[0]
         h = self.config.observation.action_history_length
@@ -228,7 +237,7 @@ class L2F:
         truncated = t_next >= self.config.episode_length
         done = terminated | truncated
 
-        reset_es, _ = self.reset(params, generator)
+        reset_es, _ = self._reset(params, generator)
         action_history = torch.cat([es.action_history[:, 1:], action[:, None]], 1)
         angvel_history = torch.cat(
             [es.angvel_history[:, 1:], next_state.angular_velocity[:, None]], 1

@@ -15,6 +15,7 @@ import torch
 
 from raptor_tpu_torch.env import presets
 from raptor_tpu_torch.env.types import DynamicsParams
+from raptor_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +59,13 @@ def sample_population(
     config: RandomizationConfig = RandomizationConfig(),
 ) -> DynamicsParams:
     """n randomized airframes, [n]-leading, on the generator's device."""
+    with span("env.sample_population"):
+        return _sample_population(generator, n, config)
+
+
+def _sample_population(
+    generator: torch.Generator, n: int, config: RandomizationConfig
+) -> DynamicsParams:
     c = config
     g = generator
     mass = log_uniform(g, (n,), c.mass_min, c.mass_max)

@@ -43,6 +43,7 @@ from raptor_tpu_torch.env.types import (
 from raptor_tpu_torch.ops import build
 from raptor_tpu_torch.ops.rollout import check_tensor
 from raptor_tpu_torch.policy import network
+from raptor_tpu_torch.utils.profiling import span
 
 launches = 0
 
@@ -202,16 +203,17 @@ def eval_soa(
     check_tensor("params", params_soa, (N_PARAM, n), device)
     check_tensor("state", state_soa, (N_STATE, n), device)
     if device.type == "cpu":
-        return eval_plain(
-            unflatten_policy(weights), params_soa, state_soa, n_steps, dt, pos_bound,
-            linvel_bound, angvel_bound, reward_config,
-        )
+        with span("ops.eval.launch"):
+            return eval_plain(
+                unflatten_policy(weights), params_soa, state_soa, n_steps, dt, pos_bound,
+                linvel_bound, angvel_bound, reward_config,
+            )
     if device.type != "cuda":
         raise ValueError(f"no eval kernel for device {device}")
     lib = build.cuda_library()
     out = torch.empty_like(state_soa)
     stats = torch.empty((3, n), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), span("ops.eval.launch"):
         rc = getattr(lib, f"raptor_eval_{hidden}")(
             weights.data_ptr(), params_soa.data_ptr(), state_soa.data_ptr(),
             out.data_ptr(), stats.data_ptr(), n, int(n_steps), dt, pos_bound,
@@ -240,14 +242,19 @@ def make_fused_policy_eval(
     hidden width the kernel is not built for."""
     device = resolve_device(device)
     check_hidden_width(policy_params)
-    weights = flatten_policy(policy_params).to(device)
+    with span("ops.eval.pack"):
+        weights = flatten_policy(policy_params).to(device)
 
     def run(params: DynamicsParams, state: State):
+        with span("ops.eval.pack"):
+            params_soa, state_soa = params.to_soa().to(device), state.to_soa().to(device)
         out, stats = eval_soa(
-            weights, params.to_soa().to(device), state.to_soa().to(device), n_steps,
+            weights, params_soa, state_soa, n_steps,
             dt, pos_bound, linvel_bound, angvel_bound, reward_config,
         )
-        return State.from_soa(out), stats[0], stats[1], stats[2]
+        with span("ops.eval.unpack"):
+            final = State.from_soa(out)
+        return final, stats[0], stats[1], stats[2]
 
     return run
 

@@ -17,6 +17,7 @@ from raptor_tpu_torch.env.quad import L2F
 from raptor_tpu_torch.env.types import DynamicsParams, State, where
 from raptor_tpu_torch.policy import network
 from raptor_tpu_torch.rl import networks
+from raptor_tpu_torch.utils.profiling import span
 
 
 class EvalStats(NamedTuple):
@@ -80,14 +81,15 @@ def evaluate_from(
 def summarize(ret: torch.Tensor, length: torch.Tensor, alive: torch.Tensor) -> EvalStats:
     """The 5 stats of per-episode return, length and alive flag [M], over the
     last axis: [K, M] inputs give one value per row."""
-    length_f = length.float()
-    return EvalStats(
-        return_mean=torch.mean(ret, -1),
-        return_std=torch.std(ret, -1, correction=0),
-        episode_length_mean=torch.mean(length_f, -1),
-        episode_length_std=torch.std(length_f, -1, correction=0),
-        share_terminated=torch.mean(1.0 - alive.float(), -1),
-    )
+    with span("rl.summarize"):
+        length_f = length.float()
+        return EvalStats(
+            return_mean=torch.mean(ret, -1),
+            return_std=torch.std(ret, -1, correction=0),
+            episode_length_mean=torch.mean(length_f, -1),
+            episode_length_std=torch.std(length_f, -1, correction=0),
+            share_terminated=torch.mean(1.0 - alive.float(), -1),
+        )
 
 
 def evaluate(

@@ -3,21 +3,24 @@
 Counterpart of `raptor_tpu/utils/profiling.py`: `device_trace` records a
 `torch.profiler` trace of the enclosed block (host and, where a card is in
 use, CUDA activity) and writes it as a Chrome trace (viewable in Perfetto or
-chrome://tracing); `Timers` is a registry of named wall-clock accumulators for
-the training loop. PyTorch launches CUDA work asynchronously, so a timer that
-reads the clock without waiting measures the enqueue: `synchronize` waits for
-the card where CUDA is in use.
+chrome://tracing). `span` marks a phase of the program: while a profiler is
+recording, the phase is a `raptor.<name>` range on the host's timeline, over
+the operators it ran and, through their launches, the kernels they queued on
+the card, all on the profiler's one clock. The program opens spans at phase
+boundaries only (a distillation step's gather, forward, backward and
+optimizer; an evaluation's sample, reset, pack, launch, unpack and summary),
+never inside a time-step loop. With no profiler running a span costs one
+check and records nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
-from typing import Dict
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def synchronize() -> None:
@@ -25,6 +28,15 @@ def synchronize() -> None:
     was never initialised (a CPU run)."""
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def span(name: str):
+    """A context manager around one phase: `record_function("raptor." +
+    name)` while a profiler records, else a shared null context. The
+    enclosing span on the same thread is its parent."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function("raptor." + name)
 
 
 @contextlib.contextmanager
@@ -37,7 +49,8 @@ def device_trace(logdir: str):
 
     The card's activity is recorded where CUDA is available, and the block is
     synchronised before the trace stops. Yields the profiler, whose
-    `key_averages()` sums the time by operator and kernel."""
+    `key_averages()` sums the time by operator and kernel; the trace shows
+    the program's `raptor.*` spans over their operators and kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -50,41 +63,3 @@ def device_trace(logdir: str):
         finally:
             synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-class Timers:
-    """Named wall-clock accumulators (host side). With `synchronize=True` a
-    region is timed to the end of its CUDA work, not to its last launch."""
-
-    def __init__(self, synchronize: bool = False):
-        self.synchronize = synchronize
-        self.total: Dict[str, float] = defaultdict(float)
-        self.count: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def time(self, name: str):
-        if self.synchronize:
-            synchronize()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.synchronize:
-                synchronize()
-            self.total[name] += time.perf_counter() - t0
-            self.count[name] += 1
-
-    def summary(self) -> Dict[str, float]:
-        return {
-            name: self.total[name] / max(self.count[name], 1)
-            for name in self.total
-        }
-
-    def report(self) -> str:
-        lines = [
-            f"{name}: total {self.total[name]:.3f}s mean "
-            f"{self.total[name] / max(self.count[name], 1) * 1e3:.2f}ms "
-            f"x{self.count[name]}"
-            for name in sorted(self.total)
-        ]
-        return "\n".join(lines)
