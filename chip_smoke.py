@@ -42,13 +42,21 @@ with a non-zero exit code and no result line:
    on the committed 691-teacher union (691 x 8 = 5,528 envs, 500 steps) must
    report `parity_ok` and finite labels in [-1, 1] and launch the collect
    kernel; prints the eager and the fused seconds per round;
+7b. the BPTT kernels vs their plain version (`bptt_plain` under autograd, on
+   the card) at the distillation step's shape, 64 sequences x 500 steps, at
+   hidden widths 16 and 48 (students from a seed, resets at 0.4 % of steps and
+   at the first, three consecutive and the last): actions and the nine
+   leaves' gradients for a random dActions within relative 1e-5 (of the
+   larger of the leaf's norm and the median leaf's), two backward calls bit
+   for bit equal, 5 launches for one forward and two backwards;
 8. the training main path with launch counts from 0: the distillation CLI on
    the same union with the full recipe's flags, cut in depth only (2 rounds of
    8 gradient steps, 118 teachers x 8 envs a round): every loss finite, the
    final checkpoint loads and passes its self-test, the round-hook evaluation
    gives five finite statistics; prints the launch counts read right after it
-   (the distillation loop collects and evaluates eagerly, so it launches no
-   kernel), and the seconds per collect round and per gradient step. Then,
+   (the distillation loop collects and evaluates eagerly, and each gradient
+   step must launch the BPTT kernels, 3 launches a step at least), and the
+   seconds per collect round and per gradient step. Then,
    outside the counted runs, the evaluate CLI flies the trained student
    through the eval kernel, and one collect round of the trained student
    through the collect kernel at the round's shape (944 envs) feeds the
@@ -67,7 +75,8 @@ with a non-zero exit code and no result line:
    183: five finite values, and the launch counts each sub-bench read from 0
    after its warm-up: the rollout sub-bench must have launched the rollout
    kernel >= 50 times, the eval sub-bench the eval kernel >= 25 times, the
-   three eager sub-benches no kernel; then `apps.roofline.main --bench` on
+   distillation sub-bench the BPTT kernels 3 times a gradient step and no other
+   kernel, the two eager sub-benches no kernel; then `apps.roofline.main --bench` on
    that line prints the utilizations against the measured peak;
 11. the teacher-farm main path: `apps.pre_training.main` at the production
    wave's flags (128 teachers x 32 envs, replay capacity 1,536, row sampling,
@@ -77,8 +86,10 @@ with a non-zero exit code and no result line:
    the launch counts read from 0 right after it (the farm is eager PyTorch
    and must launch no kernel). Then `apps.post_training.main` distills that manifest for one tiny round;
 12. time each kernel and its plain version at the main-path shapes (CUDA
-   events, median of 5 after a warm-up; 3 for the collect's plain version),
-   the collect kernel also at a distillation round's 944 envs, and print one
+   events, median of 5 after a warm-up; 3 for the collect's and the BPTT's
+   plain versions), the collect kernel also at a distillation round's 944
+   envs, the BPTT kernels at phase 7b's shape and widths (forward with its
+   saves and backward apart, 10 launches in a row a timing), and print one
    `{"kernels": [...]}` line with the launches of phases 5, 7
    and 9 (`launches`), those of the bench's processes in phase 10
    (`bench_launches`), the lanes that fly one env (`threads_per_env`), error,
@@ -367,6 +378,97 @@ def readme_loop(dev, steps: int):
                 and np.all(np.isfinite(state.states[0].position))):
             raise AssertionError(f"l2f shim: a non-finite observation or a wrong dt at step {t}")
     return venv, state
+
+
+# phase 7b: the BPTT kernels at the distillation step's shape (the recipe's
+# batch of 64 sequences x 500 steps), at the benchmark's width and the widest
+BPTT_T, BPTT_B = 500, 64
+BPTT_WIDTHS = (16, 48)
+BPTT_RTOL = 1e-5  # against the larger of a leaf's norm and the median leaf's
+
+
+def bptt_inputs(torch, dev, hidden: int, seed: int):
+    """A student of `hidden` (init_params, biases and h0 drawn too), obs
+    [T, B, 22] at the aggregate's scales, resets at 0.4 % of steps plus at the
+    first step, three consecutive steps and the last, and dA [T, B, 4]."""
+    from raptor_tpu_torch.policy import network
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    student = network.init_params(g, hidden_dim=hidden)
+    for layer in student.values():
+        for t in layer.values():
+            t.add_(0.1 * torch.randn(t.shape, device=dev, generator=g))
+            t.requires_grad_(True)
+    obs = 0.5 * torch.randn((BPTT_T, BPTT_B, 22), device=dev, generator=g)
+    reset = (torch.rand((BPTT_T, BPTT_B), device=dev, generator=g) < 0.004).float()
+    reset[0, 0] = reset[10:13, 1] = reset[-1] = 1.0
+    d_actions = torch.randn((BPTT_T, BPTT_B, 4), device=dev, generator=g)
+    return student, obs, reset, d_actions
+
+
+def bptt_kernels(torch, dev) -> dict:
+    """Phase 7b: at each of BPTT_WIDTHS, the kernels' actions and the nine
+    leaves' gradients against `bptt_plain` under autograd on the card
+    (relative BPTT_RTOL), two backward calls bit for bit equal, and 3 launches
+    (forward, backward, gradient sum) a gradient step. Returns {hidden: the
+    worst relative error}."""
+    from raptor_tpu_torch.ops import bptt as ops_bptt
+
+    worst = {}
+    for hidden in BPTT_WIDTHS:
+        student, obs, reset, d_actions = bptt_inputs(torch, dev, hidden, hidden)
+        leaves = [t for layer in student.values() for t in layer.values()]
+        before = ops_bptt.launches
+        actions = ops_bptt.bptt(student, obs, reset)
+        grads = torch.autograd.grad(actions, leaves, d_actions, retain_graph=True)
+        again = torch.autograd.grad(actions, leaves, d_actions)
+        torch.cuda.synchronize()
+        launched = ops_bptt.launches - before
+        p_actions = ops_bptt.bptt_plain(student, obs, reset)
+        p_grads = torch.autograd.grad(p_actions, leaves, d_actions)
+        torch.cuda.synchronize()
+        if launched != 5 or not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"bptt, hidden {hidden}: {launched} launches for a forward and "
+                                 "two backwards (expected 5), or the two backwards differ")
+        err_a = float((actions - p_actions).detach().norm() / p_actions.detach().norm())
+        median = statistics.median(float(g.norm()) for g in p_grads)
+        errs = [float((g - p).norm()) / max(float(p.norm()), median)
+                for g, p in zip(grads, p_grads)]
+        worst[hidden] = max(err_a, *errs)
+        print(f"bptt, hidden {hidden}, T {BPTT_T} x B {BPTT_B}: kernels vs bptt_plain, actions "
+              f"{err_a:.3e}, worst leaf gradient {max(errs):.3e} (relative); two backwards "
+              f"bit for bit equal; {launched} launches for a forward and two backwards")
+        if worst[hidden] > BPTT_RTOL:
+            raise AssertionError(f"bptt, hidden {hidden}: relative error {worst[hidden]:.3e} "
+                                 f"over {BPTT_RTOL}")
+    return worst
+
+
+def bptt_times(torch, dev, hidden: int, reps: int = 10) -> dict:
+    """Kernel milliseconds of the forward (with saves) and of the backward
+    (its two launches), each over `reps` launches in a row, and of the plain
+    version's forward and backward, at the distillation step's shape."""
+    from raptor_tpu_torch.ops import bptt as ops_bptt
+
+    student, obs, reset, d_actions = bptt_inputs(torch, dev, hidden, 100 + hidden)
+    leaves = [t.detach() for layer in student.values() for t in layer.values()]
+    _, saved = ops_bptt._forward(obs, reset, leaves, save=True)
+
+    def forward_many():
+        for _ in range(reps):
+            ops_bptt._forward(obs, reset, leaves, save=True)
+
+    def backward_many():
+        for _ in range(reps):
+            ops_bptt._backward(obs, reset, saved, leaves, d_actions)
+
+    def plain():
+        torch.autograd.grad(ops_bptt.bptt_plain(student, obs, reset),
+                            [t for layer in student.values() for t in layer.values()], d_actions)
+
+    return {"forward_ms": time_ms(torch, forward_many) / reps,
+            "backward_ms": time_ms(torch, backward_many) / reps,
+            "plain_ms": time_ms(torch, plain, reps=3)}
 
 
 def deployment_and_gate(torch, dev) -> None:
@@ -1097,6 +1199,7 @@ def main() -> int:
     )
     from raptor_tpu_torch.env.randomization import sample_population
     from raptor_tpu_torch.env.types import tree_map
+    from raptor_tpu_torch.ops import bptt as ops_bptt
     from raptor_tpu_torch.ops import build
     from raptor_tpu_torch.ops import collect as ops_collect
     from raptor_tpu_torch.ops import eval as ops_eval
@@ -1323,18 +1426,29 @@ def main() -> int:
     if not (report["parity_ok"] and report["labels_finite_in_unit_box"]):
         raise AssertionError(f"collect main path: {report}")
 
+    # 7b. the BPTT kernels vs plain
+    bptt_err = bptt_kernels(torch, dev)
+
     # 8. the training main path, with launch counts from 0. The distillation
     # loop collects through the eager path and evaluates through the eager
-    # evaluation, so the counts read after it say which kernels it reached.
-    ops_eval.launches = ops_rollout.launches = ops_collect.launches = 0
+    # evaluation; its gradient steps run the BPTT kernels. The counts read
+    # after it say which kernels it reached.
+    ops_eval.launches = ops_rollout.launches = ops_collect.launches = ops_bptt.launches = 0
     with tempfile.TemporaryDirectory() as exp_dir:
         t0 = time.perf_counter()
         ckpt, summary = post_training_cli.main(
             [UNION, *RECIPE, *DEPTH, "--experiments-dir", exp_dir, "--device", "cuda"],
             return_summary=True)
         print(f"main path: distillation CLI wall {time.perf_counter() - t0:.3f} s")
+        launches["bptt"] = ops_bptt.launches
+        n_steps = len(summary["loss_history"]) * summary["grad_steps_per_round"]
         print(f"training main path launches: collect {ops_collect.launches}, eval "
-              f"{ops_eval.launches}, rollout {ops_rollout.launches}")
+              f"{ops_eval.launches}, rollout {ops_rollout.launches}, bptt {ops_bptt.launches} "
+              f"({n_steps} gradient steps)")
+        if ops_bptt.launches < 3 * n_steps:
+            raise AssertionError(f"training main path: {ops_bptt.launches} BPTT launches for "
+                                 f"{n_steps} gradient steps (a forward and a backward, 3 "
+                                 "launches, each)")
         self_test = h5.verify_checkpoint(ckpt)
         trained = from_numpy(h5.load_actor(ckpt), dev)
         # not the training path: the checkpoint it wrote is served by the
@@ -1456,11 +1570,15 @@ def main() -> int:
         # its warm-up
         by_sub = detail["launches"]
         bench_launches = {k: sum(sub[k] for sub in by_sub.values())
-                          for k in ("rollout", "eval", "collect", "fma_peak")}
+                          for k in ("rollout", "eval", "collect", "fma_peak", "bptt")}
         print(f"bench main path launches: {by_sub}")
-        eager = ("full_env_step_xla", "train_env_steps_per_s", "pretrain_env_steps_per_s")
+        eager = ("full_env_step_xla", "pretrain_env_steps_per_s")
+        train = by_sub["train_env_steps_per_s"]
+        # the distillation sub-bench times 1 + 4 rounds of BENCH_GRAD_STEPS steps
         if (by_sub["fused_pallas_rollout"]["rollout"] < 50
                 or by_sub["fused_policy_eval"]["eval"] < 25
+                or train["bptt"] < 3 * 5 * BENCH_GRAD_STEPS
+                or any(n for k, n in train.items() if k != "bptt")
                 or any(n for name in eager for n in by_sub[name].values())):
             raise AssertionError(f"bench main path: launches {by_sub}")
         bench_path = os.path.join(roof_dir, "bench.json")
@@ -1630,6 +1748,30 @@ def main() -> int:
         "max_abs_err": fma_err, "ms": peak["t_lo_s"] * 1e3, "ms_hi": peak["t_hi_s"] * 1e3,
         "plain_ms": fma_plain_ms, "plain_depth": fma_depth, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+    })
+
+    # the BPTT kernels at the distillation step's shape; the bound counts the
+    # dense layers' operations (backward twice the forward) and the bytes of
+    # the inputs, the actions, dA and the saved activations written and read
+    # once. Their real bound is each sequence's dependent chain (PERF.md).
+    bptt_ms = {h: bptt_times(torch, dev, h) for h in BPTT_WIDTHS}
+    for h, row in bptt_ms.items():
+        t_ops = 3 * 2 * (22 * h + 6 * h * h + 4 * h) * BPTT_T * BPTT_B / peak_flops * 1e3
+        t_bytes = (22 + 1 + 4 + 4 + 2 * 6 * h) * 4 * BPTT_T * BPTT_B / peak_bytes * 1e3
+        row.update(bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        print(f"bptt, hidden {h}, T {BPTT_T} x B {BPTT_B}: forward {row['forward_ms']:.4f} ms, "
+              f"backward (two launches) {row['backward_ms']:.4f} ms, plain forward and "
+              f"backward {row['plain_ms']:.1f} ms, bound {row['bound_ms']:.4f} ms ({sku} peaks)")
+    rows.append({
+        "name": "bptt", "route": "cuda", "source": "raptor_tpu_torch/csrc/bptt.cu",
+        "replaces": "raptor_tpu/distill/post_training.py bptt_actions (lax.scan, no Pallas)",
+        "launches": launches["bptt"], "bench_launches": bench_launches["bptt"],
+        "threads_per_env": None, "max_abs_err": None, "max_rel_err": max(bptt_err.values()),
+        "ms": bptt_ms[16]["forward_ms"] + bptt_ms[16]["backward_ms"],
+        "plain_ms": bptt_ms[16]["plain_ms"], "bound_ms": bptt_ms[16]["bound_ms"],
+        "bound_by": bptt_ms[16]["bound_by"], "library_ms": None,
+        "by_width": {str(h): row for h, row in bptt_ms.items()},
     })
     deployment_and_gate(torch, dev)
     learners(torch, dev)

@@ -36,6 +36,8 @@ from raptor_tpu_torch.distill import post_training
 from raptor_tpu_torch.env import EnvConfig, L2F, eval_parity_init, presets
 from raptor_tpu_torch.env.io import _FIELDS, load_params_numpy
 from raptor_tpu_torch.env.types import tree_map
+from raptor_tpu_torch.ops import bptt as ops_bptt
+from raptor_tpu_torch.ops import build
 from raptor_tpu_torch.rl import evaluation
 from raptor_tpu_torch.utils.extrack import Run
 
@@ -171,7 +173,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="tilt threshold (rad) for --severe-weight")
     p.add_argument("--student-hidden", type=int, default=16,
                    help="student GRU width; 16 = reference architecture (2,084 params). "
-                        "Other widths are a capacity ablation, not reference-parity")
+                        "Other widths are a capacity ablation, not reference-parity; on a "
+                        "card only the widths the BPTT kernels are built for, "
+                        f"{', '.join(map(str, build.HIDDEN_WIDTHS))}")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--experiments-dir", default="experiments")
     p.add_argument("--eval-every-rounds", type=int, default=5)
@@ -184,6 +188,8 @@ def main(argv=None, return_summary: bool = False):
     `return_summary` (path, the dict written to `summary.json`)."""
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        ops_bptt.require_built(args.student_hidden)
 
     env = L2F(EnvConfig(init=dataclasses.replace(
         EnvConfig().init, angle_power=args.collect_angle_power)))

@@ -26,11 +26,12 @@ metric to null instead of ending the bench. Every rate is the marginal cost
 between two iteration counts, each timed on the host clock after
 `torch.cuda.synchronize()`, so fixed per-batch overhead cancels.
 `detail.launches` holds, for each sub-bench, how often each kernel wrapper
-(`ops/rollout.py`, `ops/eval.py`, `ops/collect.py`, `ops/fma_peak.py`)
-launched its kernel in the timed iterations (counted from 0 after the
-warm-up): on a card the rollout sub-bench launches the rollout kernel 50 times
-and the eval sub-bench the eval kernel 25 times; the other three run eager
-PyTorch and launch none.
+(`ops/rollout.py`, `ops/eval.py`, `ops/collect.py`, `ops/fma_peak.py`,
+`ops/bptt.py`) launched its kernels in the timed iterations (counted from 0
+after the warm-up): on a card the rollout sub-bench launches the rollout
+kernel 50 times, the eval sub-bench the eval kernel 25 times, and the
+distillation sub-bench the BPTT kernels 3 times a gradient step; the other two
+run eager PyTorch and launch none.
 
 The rollout and eval kernels leave the loop of an env that terminated, so N x
 T a call would count steps that never ran. The rollout sub-bench therefore
@@ -78,9 +79,10 @@ def _sync(device) -> None:
 
 
 def _kernel_wrappers():
-    from raptor_tpu_torch.ops import collect, eval as eval_, fma_peak, rollout
+    from raptor_tpu_torch.ops import bptt, collect, eval as eval_, fma_peak, rollout
 
-    return {"rollout": rollout, "eval": eval_, "collect": collect, "fma_peak": fma_peak}
+    return {"rollout": rollout, "eval": eval_, "collect": collect, "fma_peak": fma_peak,
+            "bptt": bptt}
 
 
 def _warm(device) -> None:

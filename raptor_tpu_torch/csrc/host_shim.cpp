@@ -1,13 +1,16 @@
 // The kernels' per-env code (quad_step.cuh, team_step.cuh) looped over envs
 // on the CPU, with the same C interface as rollout.cu, eval.cu and collect.cu
 // minus the stream, plus the collect kernel's PRNG and sampler on arrays of
-// counters and the FMA peak probe's chain (fma_chain.cuh) on an array. The
-// kernels' teams run as HostTeam: the K lanes of a team in one thread, phase
-// by phase between the exchanges. Built with g++ so the CPU tests can hold the
+// counters, the FMA peak probe's chain (fma_chain.cuh) on an array, and
+// bptt.cu's forward, backward and sum of the sequences' gradient rows
+// (bptt_step.cuh) looped over sequences. The kernels' teams run as HostTeam:
+// the K lanes of a team in one thread, phase by phase between the exchanges;
+// the BPTT's blocks as HostBlock, likewise between the barriers. Built with g++ so the CPU tests can hold the
 // arithmetic the kernels run to the JAX package and to the plain PyTorch
 // versions.
 #include <vector>
 
+#include "bptt_step.cuh"
 #include "fma_chain.cuh"
 #include "quad_step.cuh"
 #include "team_step.cuh"
@@ -56,6 +59,31 @@ int collect_host(const float* weights, const float* params, const float* state,
     raptor::team_collect_env<raptor::HostTeam<K>, H>(
         tm, i, n, wt.data(), weights, params, state, out, n_steps, dt,
         episode_length, b, init, seed, env_offset);
+  }
+  return 0;
+}
+
+template <int H>
+int bptt_host(const raptor::StudentLeaves& w, const float* obs, const float* reset,
+              const float* d_actions, float* actions, float* grad, int n_steps, int batch) {
+  using S = raptor::Bptt<H>;
+  std::vector<float> sm(S::SHARED);
+  for (int i = 0; i < S::FWD_THREADS; ++i) raptor::stage_student<H>(w, sm.data(), i, S::FWD_THREADS);
+  std::vector<float> saved(static_cast<size_t>(n_steps) * batch * S::SAVED);
+  const raptor::HostBlock<S::FWD_THREADS> fwd;
+  for (long b = 0; b < batch; ++b) {
+    raptor::bptt_forward_seq<raptor::HostBlock<S::FWD_THREADS>, H>(
+        fwd, sm.data(), obs, reset, actions, saved.data(), n_steps, batch, b);
+  }
+  if (d_actions == nullptr) return 0;
+  std::vector<float> partial(static_cast<size_t>(batch) * S::TOTAL);
+  const raptor::HostBlock<S::BWD_THREADS> bwd;
+  for (long b = 0; b < batch; ++b) {
+    raptor::bptt_backward_seq<raptor::HostBlock<S::BWD_THREADS>, H>(
+        bwd, sm.data(), obs, reset, saved.data(), d_actions, partial.data(), n_steps, batch, b);
+  }
+  for (int f = 0; f < S::TOTAL; ++f) {
+    raptor::bptt_reduce_entry(partial.data(), grad, batch, S::TOTAL, f);
   }
   return 0;
 }
@@ -130,6 +158,24 @@ extern "C" int raptor_collect_team_host(const float* weights, const float* param
     case 8: RAPTOR_RUN(8);
     default: return -1;
   }
+#undef RAPTOR_RUN
+}
+
+// bptt.cu's three kernels in one call: the nine leaves, obs [T, B, 22],
+// reset [T, B] in; actions [T, B, 4] out; with d_actions [T, B, 4] also the
+// gradient of the flat policy layout, grad [n_weights(hidden)] (d_actions
+// null: the forward alone, grad untouched). -1 for a hidden width that is not
+// instantiated.
+extern "C" int raptor_bptt_host(const float* w0, const float* b0, const float* wi,
+                                const float* wh, const float* bi, const float* bh,
+                                const float* h0, const float* w2, const float* b2,
+                                const float* obs, const float* reset,
+                                const float* d_actions, float* actions, float* grad,
+                                int n_steps, int batch, int hidden) {
+  const raptor::StudentLeaves w{w0, b0, wi, wh, bi, bh, h0, w2, b2};
+#define RAPTOR_RUN(H) \
+  return bptt_host<H>(w, obs, reset, d_actions, actions, grad, n_steps, batch)
+  RAPTOR_HIDDEN_DISPATCH(hidden, RAPTOR_RUN)
 #undef RAPTOR_RUN
 }
 

@@ -16,10 +16,11 @@ an env auto-resets, and the same reset masks drive the hidden re-injection
 during BPTT.
 
 Where the JAX package jits and scans, this runs eagerly: `make_collect` is a
-Python loop of T env steps, and the BPTT gradient is `torch.autograd` over
-`policy.network.apply_step` unrolled over T. The student's parameters are leaf
-tensors with `requires_grad`, updated in place by `torch.optim.Adam`; the
-aggregate is updated in place too. Randomness comes from one explicit
+Python loop of T env steps. The BPTT (`bptt_actions`) is one forward and one
+backward CUDA kernel on a card (`ops.bptt`, a `torch.autograd.Function`), and
+`torch.autograd` over `policy.network.apply_step` unrolled over T on the CPU.
+The student's parameters are leaf tensors with `requires_grad`, updated in
+place by `torch.optim.Adam`; the aggregate is updated in place too. Randomness comes from one explicit
 `torch.Generator` on the data's device, so the random streams differ from the
 JAX package's threefry keys. `fused_collect_round` collects a beta == 0 round
 through the collect kernel (`ops/collect.py`) and one batched relabel pass.
@@ -48,6 +49,7 @@ from raptor_tpu_torch.distill.population import broadcast_airframe_to_envs, flat
 from raptor_tpu_torch.env.quad import L2F
 from raptor_tpu_torch.env.recovery import recovery_action, tilt_angle
 from raptor_tpu_torch.env.types import POLICY_OBS_DIM, DynamicsParams, tree_map
+from raptor_tpu_torch.ops import bptt as ops_bptt
 from raptor_tpu_torch.policy import network as student_net
 from raptor_tpu_torch.rl import networks
 from raptor_tpu_torch.rl.sac import average_over
@@ -302,18 +304,10 @@ def bptt_actions(student_params, obs, reset, norm=None):
     """Student actions [T, B, 4] over a [T, B] batch of sequences with
     reset-masked hidden carry: reset[t] = 1 means the env reset after step t,
     so the hidden state entering step t + 1 is the learned initial state. The
-    first row of a collected round always starts fresh."""
-    b = obs.shape[1]
-    h0 = student_net.initial_hidden(student_params, b)
-    entering_reset = torch.cat([torch.ones_like(reset[:1]), reset[:-1]]) != 0
-    obs = _norm_obs(obs, norm)
-    h = h0
-    actions = []
-    for t in range(obs.shape[0]):
-        h = torch.where(entering_reset[t][:, None], h0, h)
-        h, action = student_net.apply_step(student_params, h, obs[t])
-        actions.append(action)
-    return torch.stack(actions)
+    first row of a collected round always starts fresh. The normalizer
+    carries no gradient; the rest is `ops.bptt.bptt` (the BPTT kernels on a
+    card, the eager loop on the CPU)."""
+    return ops_bptt.bptt(student_params, _norm_obs(obs, norm), reset)
 
 
 # rotation-matrix R22 channel of the 22-dim policy obs (position 3 dims, then
@@ -599,6 +593,8 @@ def distill(
     seconds each round spent in collect, aggregate add and training
     (`seconds/*`, after a device synchronize)."""
     dev = airframes.mass.device
+    if dev.type == "cuda":
+        ops_bptt.require_built(cfg.student_hidden)
     student = student_net.init_params(generator, hidden_dim=cfg.student_hidden)
     for layer in student.values():
         for t in layer.values():

@@ -1,8 +1,8 @@
 """Build and load the port's native code from `raptor_tpu_torch/csrc/`.
 
 - `cuda_library()`: the CUDA kernels (`rollout.cu`, `eval.cu`, `collect.cu`,
-  `fma_peak.cu`; the eval and collect sources once for each hidden width in
-  `HIDDEN_WIDTHS`), each unit compiled by its own `nvcc` process (all started
+  `bptt.cu`, `fma_peak.cu`; the eval, collect and BPTT sources once for each
+  hidden width in `HIDDEN_WIDTHS`), each unit compiled by its own `nvcc` process (all started
   together) for sm_90a, then linked into one shared library with a plain C
   interface, loaded with ctypes.
 - `host_library()`: `host_shim.cpp`, the kernels' per-env code looped on the
@@ -27,15 +27,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raptor_tpu_torch"
-HEADERS = ("quad_step.cuh", "team_step.cuh", "fma_chain.cuh")
-# the hidden widths the eval and collect kernels are built for: one object a
-# width, exporting raptor_eval_<H> and raptor_collect_<H>
+HEADERS = ("quad_step.cuh", "team_step.cuh", "fma_chain.cuh", "bptt_step.cuh")
+# the hidden widths the eval, collect and BPTT kernels are built for: one
+# object a width, exporting raptor_eval_<H>, raptor_collect_<H> and
+# raptor_bptt_{forward,backward}_<H>
 HIDDEN_WIDTHS = (8, 16, 24, 32, 48)
-CUDA_SOURCES = ("rollout.cu", "eval.cu", "collect.cu", "fma_peak.cu")
+CUDA_SOURCES = ("rollout.cu", "eval.cu", "collect.cu", "bptt.cu", "fma_peak.cu")
 # (source, extra nvcc flags) of each object
 CUDA_UNITS = (
     ("rollout.cu", ()), ("fma_peak.cu", ()),
-    *((src, (f"-DRAPTOR_HIDDEN={h}",)) for src in ("eval.cu", "collect.cu")
+    *((src, (f"-DRAPTOR_HIDDEN={h}",)) for src in ("eval.cu", "collect.cu", "bptt.cu")
       for h in HIDDEN_WIDTHS),
 )
 HOST_SOURCE = "host_shim.cpp"
@@ -59,6 +60,14 @@ INIT_ARGS = [_F] * 5 + [_I]
 COLLECT_ARGS = [_P] * 4 + [_I, _I] + [_F] * 5 + INIT_ARGS + [_U, _U]
 # x, out, n, depth, nfma, a, b
 FMA_PEAK_ARGS = [_P, _P, _L, _I, _I, _F, _F]
+# the student's nine leaves, obs, reset
+BPTT_IN = [_P] * 11
+# ..., actions, saved, n_steps, batch
+BPTT_FORWARD_ARGS = BPTT_IN + [_P, _P, _I, _I]
+# ..., saved, d_actions, partial, grad, n_steps, batch
+BPTT_BACKWARD_ARGS = BPTT_IN + [_P] * 4 + [_I, _I]
+# ..., d_actions, actions, grad, n_steps, batch, hidden
+BPTT_HOST_ARGS = BPTT_IN + [_P] * 3 + [_I, _I, _I]
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -146,7 +155,8 @@ def _load(kind: str, sources, flags, build, signatures) -> ctypes.CDLL:
 
 def cuda_library() -> ctypes.CDLL:
     """The CUDA kernels, built on first call. Entry points `raptor_rollout`,
-    `raptor_eval_<H>` and `raptor_collect_<H>` for H in `HIDDEN_WIDTHS`, and
+    `raptor_eval_<H>`, `raptor_collect_<H>`, `raptor_bptt_forward_<H>` and
+    `raptor_bptt_backward_<H>` for H in `HIDDEN_WIDTHS`, and
     `raptor_fma_peak` (which also fills an int[3] with its chains a thread,
     block and grid) take a stream last and return cudaGetLastError();
     `raptor_rollout_threads_per_env`, `raptor_eval_threads_per_env` and
@@ -158,6 +168,8 @@ def cuda_library() -> ctypes.CDLL:
             "raptor_rollout": ROLLOUT_ARGS + [_P],
             **{f"raptor_eval_{h}": EVAL_ARGS + [_P] for h in HIDDEN_WIDTHS},
             **{f"raptor_collect_{h}": COLLECT_ARGS + [_P] for h in HIDDEN_WIDTHS},
+            **{f"raptor_bptt_forward_{h}": BPTT_FORWARD_ARGS + [_P] for h in HIDDEN_WIDTHS},
+            **{f"raptor_bptt_backward_{h}": BPTT_BACKWARD_ARGS + [_P] for h in HIDDEN_WIDTHS},
             "raptor_fma_peak": FMA_PEAK_ARGS + [_P, _P],
             "raptor_rollout_threads_per_env": [],
             "raptor_eval_threads_per_env": [],
@@ -199,7 +211,9 @@ def host_library() -> ctypes.CDLL:
     entry points without the stream (and the geometry), the eval and collect
     ones with the hidden width after n_steps (-1 for one not built);
     `raptor_collect_team_host`: the collect at hidden width 16 with the lanes
-    of a team (1, 2, 4 or 8) in the width's place; `raptor_hash_host` and
+    of a team (1, 2, 4 or 8) in the width's place; `raptor_bptt_host`: the
+    BPTT's forward, backward and gradient sum in one call, the hidden width
+    last; `raptor_hash_host` and
     `raptor_sample_state_host`: the collect kernel's PRNG and sampler on
     arrays of counters)."""
     return _load(
@@ -210,6 +224,7 @@ def host_library() -> ctypes.CDLL:
             "raptor_collect_host": COLLECT_ARGS[:6] + [_I] + COLLECT_ARGS[6:],
             "raptor_collect_team_host": COLLECT_ARGS[:6] + [_I] + COLLECT_ARGS[6:],
             "raptor_fma_peak_host": FMA_PEAK_ARGS,
+            "raptor_bptt_host": BPTT_HOST_ARGS,
             "raptor_hash_host": [_P, _P, _P, _I, _U],
             "raptor_sample_state_host": [_P, _P, _P, _I] + INIT_ARGS,
         },

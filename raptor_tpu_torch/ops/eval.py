@@ -89,15 +89,17 @@ def check_hidden_width(policy_params: network.Params) -> int:
     return hidden
 
 
-def require_built(hidden: int, obs_dim: int = OBS) -> None:
-    """Raise ValueError, naming the built widths, unless the kernels are built
-    for this hidden width and observation width."""
+def require_built(hidden: int, obs_dim: int = OBS, kernels: str = "eval and collect",
+                  instead: str = "evaluate other widths with ops.eval.eval_plain or "
+                                 "rl.evaluation, collect them with "
+                                 "distill.post_training.make_collect") -> None:
+    """Raise ValueError, naming the built widths and what to use `instead`,
+    unless the `kernels` are built for this hidden width and observation
+    width."""
     if hidden not in HIDDEN_WIDTHS or obs_dim != OBS:
         raise ValueError(
-            f"the eval and collect kernels are built for hidden widths {HIDDEN_WIDTHS} and "
-            f"{OBS} observations, got {hidden} and {obs_dim}; evaluate other widths with "
-            "ops.eval.eval_plain or rl.evaluation, collect them with "
-            "distill.post_training.make_collect"
+            f"the {kernels} kernels are built for hidden widths {HIDDEN_WIDTHS} and "
+            f"{OBS} observations, got {hidden} and {obs_dim}; {instead}"
         )
 
 

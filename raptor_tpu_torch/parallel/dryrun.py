@@ -30,8 +30,8 @@ its block, with the collectives written out. Four sections, at JAX's shapes:
 Each process asserts that every loss and observation is finite and that the
 shapes are right; the learners' and the students' parameters are gathered
 and must be equal on every rank bit for bit. Every process reports its
-kernel launches (the collect kernel on a card; the plain version on the CPU
-launches none). Rank 0 prints one JSON report.
+kernel launches (on a card the collect kernel and the distillation's BPTT
+kernels; the plain versions on the CPU launch none). Rank 0 prints one JSON report.
 """
 
 from __future__ import annotations

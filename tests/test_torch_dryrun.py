@@ -475,7 +475,8 @@ def test_dryrun_multichip_on_two_cpu_processes():
         assert len(r["distill_losses"]) == 2 and np.all(np.isfinite(r["distill_losses"]))
         assert r["b3_equals_one_launch"]
     assert ranks[0]["distill_losses"] == ranks[1]["distill_losses"]
-    assert report["launches"] == dict.fromkeys(("rollout", "eval", "collect", "fma_peak"), 0)
+    assert report["launches"] == dict.fromkeys(
+        ("rollout", "eval", "collect", "fma_peak", "bptt"), 0)
 
 
 def test_layout_raises_where_a_batch_or_a_round_does_not_split():

@@ -369,7 +369,8 @@ def test_bench_scaling_cpu_writes_both_rows(tmp_path, capsys):
     assert all(r["backend"] == "gloo" and r["processes"] == r["devices"] for r in rows)
     assert all(np.isfinite(r["critic_loss"]) and r["env_steps_per_s"] > 0 for r in rows)
     # the super-step is eager PyTorch: no process launched a kernel
-    assert all(r["launches"] == dict.fromkeys(("rollout", "eval", "collect", "fma_peak"), 0)
+    assert all(r["launches"] == dict.fromkeys(("rollout", "eval", "collect", "fma_peak", "bptt"),
+                                              0)
                for r in rows)
     assert report["scaling"][0]["scaling_efficiency"] == 1.0
     assert "NOT the scaling of cards" in report["note"]

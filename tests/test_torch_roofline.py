@@ -230,7 +230,7 @@ def test_bench_small_prints_five_numbers_and_roofline_reads_them(tmp_path):
     assert detail["target_10M_closed_loop_met"] is False
     # on the CPU the wrappers take their plain versions: no kernel launches
     assert detail["launches"] == {
-        name: {"rollout": 0, "eval": 0, "collect": 0, "fma_peak": 0} for name in names}
+        name: {"rollout": 0, "eval": 0, "collect": 0, "fma_peak": 0, "bptt": 0} for name in names}
     bench_path, out = tmp_path / "bench.json", tmp_path / "roofline.json"
     bench_path.write_text(proc.stdout)
     out.write_text(json.dumps({"vpu_peak": {"fma_peak_flops_per_s": 6e13}}))
@@ -243,7 +243,7 @@ def test_bench_small_prints_five_numbers_and_roofline_reads_them(tmp_path):
 def test_bench_sub_runs_in_process_and_a_failing_sub_gives_null(monkeypatch, capsys):
     out = bench_module.main(["--sub", "fused_pallas_rollout", "--small", "--device", "cpu"])
     assert out["value"] > 0 and json.loads(capsys.readouterr().out.strip()) == out
-    assert out["launches"] == {"rollout": 0, "eval": 0, "collect": 0, "fma_peak": 0}
+    assert out["launches"] == {"rollout": 0, "eval": 0, "collect": 0, "fma_peak": 0, "bptt": 0}
     assert bench_module.run_sub(
         "no_such_metric", 60, ["--small", "--device", "cpu"]) == (None, None)
     assert bench_module.N_ENVS == 16384 and bench_module.N_STEPS == 512
