@@ -70,11 +70,20 @@ def random_quaternion(
     angle_power: float = 1.0,
 ) -> torch.Tensor:
     """n rotations up to max_angle about uniform random axes, [n, 4], on the
-    generator's device. angle = max_angle * u^(1/angle_power)."""
+    generator's device. angle = max_angle * u^(1/angle_power). Draws a
+    `randn` [n, 3] for the axes, then a `rand` [n] for u."""
     device = generator.device
     axis = torch.randn((n, 3), generator=generator, device=device)
-    axis = axis * torch.rsqrt(torch.sum(axis * axis, -1, keepdim=True) + 1e-12)
     u = torch.rand((n,), generator=generator, device=device)
+    return quaternion_from_draws(axis, u, max_angle, angle_power)
+
+
+def quaternion_from_draws(
+    axis: torch.Tensor, u: torch.Tensor, max_angle: float, angle_power: float
+) -> torch.Tensor:
+    """The arithmetic of `random_quaternion` on its draws: axis [n, 3]
+    standard normal, u [n] uniform in [0, 1)."""
+    axis = axis * torch.rsqrt(torch.sum(axis * axis, -1, keepdim=True) + 1e-12)
     if angle_power != 1.0:
         u = u ** (1.0 / angle_power)
     return quat_from_axis_angle(axis, u * max_angle)

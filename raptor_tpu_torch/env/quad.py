@@ -13,6 +13,14 @@ Observation layout (first 22 dims = the policy observation):
     [0:3] position  [3:12] rotation matrix, row-major  [12:15] linear velocity
     [15:18] angular velocity (body)  [18:22] previous action
     [22:] privileged tail (normalized dynamics params; critics only)
+
+`sample_state` and `reset` make every draw first, in the order and shapes
+`state_draws` gives, and then derive the states (and the histories and the
+observation) from those draws and the airframes alone. The draws' order and
+shapes are part of the API: the benchmark's reference draws them again from
+the same seed, and the generator's state after a call is that of these
+draws. On a card `reset`'s arithmetic runs as one CUDA graph replay
+(`env.graphs`); the auto-reset inside `step` stays eager.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from raptor_tpu_torch.env import dynamics, maths
+from raptor_tpu_torch.env import dynamics, graphs, maths
 from raptor_tpu_torch.env.types import (
     DynamicsParams,
     EnvConfig,
@@ -56,6 +64,41 @@ def terminated_by(
     )
 
 
+def state_draws(n: int):
+    """The draws of `L2F.sample_state` and `L2F.reset` for n envs, in order:
+    `(kind, shape)` each, as `graphs.draw` makes them. Their order and shapes
+    are part of the API: the benchmark's reference (`benchmark/reference/
+    quad.py` `sample_states`) draws them again from the same seed."""
+    return (
+        ("rand", (n, 3)),  # position in the box
+        ("randn", (n, 3)),  # rotation axis (maths.random_quaternion)
+        ("rand", (n,)),  # rotation angle
+        ("randn", (n, 3)),  # linear velocity
+        ("randn", (n, 3)),  # angular velocity
+    )
+
+
+# the airframes' leaves the arithmetic of a reset reads: its initial rotor
+# speeds and the observation's privileged tail
+RESET_READS = ("mass", "inertia_diag", "thrust_curve", "rpm_min", "rpm_max",
+               "torque_constant", "motor_time_constant", "rotor_positions")
+
+_GRAPHED = graphs.Graphed("reset")
+
+
+def _as_reset(leaves) -> Tuple[EnvState, torch.Tensor]:
+    """(env state, observation) from the leaves of `L2F._leaves_of_reset`;
+    the step counter is made here, zero."""
+    position, orientation, linvel, angvel, rpm, action_history, angvel_history, obs = leaves
+    es = EnvState(
+        dynamics=State(position, orientation, linvel, angvel, rpm),
+        action_history=action_history,
+        angvel_history=angvel_history,
+        t=torch.zeros(position.shape[0], dtype=torch.int32, device=position.device),
+    )
+    return es, obs
+
+
 class L2F:
     """The environment. The static config lives on the object; all dynamic
     data flows through the arguments."""
@@ -73,16 +116,21 @@ class L2F:
 
     # -- sampling --------------------------------------------------------
     def sample_state(self, params: DynamicsParams, generator: torch.Generator) -> State:
-        """Randomized initial states, one per airframe in `params`."""
-        c = self.config.init
+        """Randomized initial states, one per airframe in `params`: the draws
+        of `state_draws`, then `_state_from_draws`."""
         n = params.mass.shape[0]
-        g, dev = generator, generator.device
-        position = -c.position_range + torch.rand((n, 3), generator=g, device=dev) * (
-            2.0 * c.position_range
-        )
-        orientation = maths.random_quaternion(n, g, c.max_angle, c.angle_power)
-        linear_velocity = torch.randn((n, 3), generator=g, device=dev) * c.linear_velocity_std
-        angular_velocity = torch.randn((n, 3), generator=g, device=dev) * c.angular_velocity_std
+        return self._state_from_draws(params, graphs.draw(generator, state_draws(n)))
+
+    def _state_from_draws(self, params: DynamicsParams, draws) -> State:
+        """The arithmetic of `sample_state` on its draws; reads `mass` and
+        `thrust_curve` (`rpm_min` where the rotors do not start at hover)."""
+        c = self.config.init
+        u_pos, axis, u_angle, linvel, angvel = draws
+        n = u_pos.shape[0]
+        position = -c.position_range + u_pos * (2.0 * c.position_range)
+        orientation = maths.quaternion_from_draws(axis, u_angle, c.max_angle, c.angle_power)
+        linear_velocity = linvel * c.linear_velocity_std
+        angular_velocity = angvel * c.angular_velocity_std
         rpm = dynamics.hover_rpm(params) if c.rpm_at_hover else params.rpm_min
         return State(
             position=position,
@@ -173,27 +221,54 @@ class L2F:
     def reset(
         self, params: DynamicsParams, generator: torch.Generator
     ) -> Tuple[EnvState, torch.Tensor]:
+        """Fresh episodes, one per airframe in `params`: (env state,
+        observation).
+
+        The draws come first (`state_draws`, on `generator`), then the
+        arithmetic, which reads the airframes' `RESET_READS` alone. On a
+        card that arithmetic is one CUDA graph replay from the third call
+        with the same sizes, configs and device (`env.graphs`), and the
+        float leaves of the result are views of one buffer of the call's
+        own. A subclass that draws its own initial states (`sample_state`
+        overridden) stays eager."""
         with span("env.reset"):
-            return self._reset(params, generator)
+            n = params.mass.shape[0]
+            leaves = [getattr(params, k) for k in RESET_READS]
+            key = None
+            if type(self).sample_state is L2F.sample_state:
+                key = (type(self), n, self.config.init, self.config.observation,
+                       tuple(x.shape for x in leaves))
+            return _as_reset(_GRAPHED(
+                key, generator,
+                lambda: self._leaves_of_reset(params, self.sample_state(params, generator)),
+                state_draws(n), self._reset_from_draws, leaves))
 
     def _reset(
         self, params: DynamicsParams, generator: torch.Generator
     ) -> Tuple[EnvState, torch.Tensor]:
-        """`reset` without its span: `step` draws the auto-reset states every
-        time step."""
-        state = self.sample_state(params, generator)
+        """`reset`, eager and without its span: `step` draws the auto-reset
+        states every time step."""
+        return _as_reset(self._leaves_of_reset(params, self.sample_state(params, generator)))
+
+    def _reset_from_draws(self, draws, leaves):
+        """The arithmetic of `reset` on the draws of `state_draws` and the
+        airframes' `RESET_READS` (the graph's body): every other leaf of the
+        airframes is None here, so that reading one fails."""
+        fields = {f.name: None for f in dataclasses.fields(DynamicsParams)}
+        params = DynamicsParams(**{**fields, **dict(zip(RESET_READS, leaves))})
+        return self._leaves_of_reset(params, self._state_from_draws(params, draws))
+
+    def _leaves_of_reset(self, params: DynamicsParams, state: State):
+        """The float leaves of a reset from its initial states: the state's
+        five, the two histories and the observation."""
         n = state.position.shape[0]
         h = self.config.observation.action_history_length
         d = self.config.observation.angular_velocity_delay
         action_history = state.position.new_zeros((n, h, 4))
         angvel_history = state.angular_velocity[:, None].expand(n, d + 1, 3).contiguous()
-        es = EnvState(
-            dynamics=state,
-            action_history=action_history,
-            angvel_history=angvel_history,
-            t=torch.zeros(n, dtype=torch.int32, device=state.position.device),
-        )
-        return es, self.observe(params, state, action_history, angvel_history)
+        obs = self.observe(params, state, action_history, angvel_history)
+        return [state.position, state.orientation, state.linear_velocity,
+                state.angular_velocity, state.rpm, action_history, angvel_history, obs]
 
     def dynamics_step(
         self,
