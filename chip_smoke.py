@@ -413,17 +413,18 @@ def bptt_kernels(torch, dev) -> dict:
     (forward, backward, gradient sum) a gradient step. Returns {hidden: the
     worst relative error}."""
     from raptor_tpu_torch.ops import bptt as ops_bptt
+    from raptor_tpu_torch.utils import profiling
 
     worst = {}
     for hidden in BPTT_WIDTHS:
         student, obs, reset, d_actions = bptt_inputs(torch, dev, hidden, hidden)
         leaves = [t for layer in student.values() for t in layer.values()]
-        before = ops_bptt.launches
+        before = profiling.launches["bptt"]
         actions = ops_bptt.bptt(student, obs, reset)
         grads = torch.autograd.grad(actions, leaves, d_actions, retain_graph=True)
         again = torch.autograd.grad(actions, leaves, d_actions)
         torch.cuda.synchronize()
-        launched = ops_bptt.launches - before
+        launched = profiling.launches["bptt"] - before
         p_actions = ops_bptt.bptt_plain(student, obs, reset)
         p_grads = torch.autograd.grad(p_actions, leaves, d_actions)
         torch.cuda.synchronize()
@@ -483,16 +484,11 @@ def deployment_and_gate(torch, dev) -> None:
     from raptor_tpu_torch.inference import (
         Executor, Firmware, NativeExecutor, build_executor, build_firmware,
     )
-    from raptor_tpu_torch.ops import collect as ops_collect
-    from raptor_tpu_torch.ops import eval as ops_eval
-    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
-    from raptor_tpu_torch.ops import rollout as ops_rollout
+    from raptor_tpu_torch.utils import profiling
     from raptor_tpu_torch.utils import flightlog
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    wrappers = (ops_rollout, ops_eval, ops_collect, ops_fma_peak)
-    for w in wrappers:
-        w.launches = 0
+    profiling.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         # 13. export, as a user runs it
         t0 = time.perf_counter()
@@ -610,7 +606,7 @@ def deployment_and_gate(torch, dev) -> None:
               f"divergence {replay['divergence_final_m']:.2e} m, {time.perf_counter() - t0:.1f} s")
         if flight["crashed"] or not replay["divergence_final_m"] < 1e-2:
             raise AssertionError(f"flight eval: {flight} {replay}")
-    launches = {w.__name__.rsplit(".", 1)[1]: w.launches for w in wrappers}
+    launches = dict(profiling.launches)
     print(f"deployment and teacher gate launches: {launches}")
     if any(launches.values()):
         raise AssertionError("the deployment path and the gate run no kernel, yet one launched")
@@ -641,10 +637,6 @@ def learners(torch, dev) -> None:
     from raptor_tpu_torch.apps import train_gru_sac as gru_cli
     from raptor_tpu_torch.checkpoint import from_numpy, h5
     from raptor_tpu_torch.env import EnvConfig, L2F, sample_population
-    from raptor_tpu_torch.ops import collect as ops_collect
-    from raptor_tpu_torch.ops import eval as ops_eval
-    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
-    from raptor_tpu_torch.ops import rollout as ops_rollout
     from raptor_tpu_torch.policy import network
     from raptor_tpu_torch.rl import evaluation, loop, ppo, runner, runner_generic, runner_gru
     from raptor_tpu_torch.rl import sac_gru, td3
@@ -654,9 +646,7 @@ def learners(torch, dev) -> None:
     from raptor_tpu_torch.utils.tfevents import read_scalars
 
     sync = profiling.synchronize
-    wrappers = (ops_rollout, ops_eval, ops_collect, ops_fma_peak)
-    for w in wrappers:
-        w.launches = 0
+    profiling.reset_launches()
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         # 18. the recurrent path: the graft on the student's golden inputs,
@@ -724,7 +714,7 @@ def learners(torch, dev) -> None:
             fn()
             sync()
             phase_s[name] = time.perf_counter() - t0
-        if any(w.launches for w in wrappers):
+        if any(profiling.launches.values()):
             raise AssertionError("train_gru_sac runs no kernel, yet one launched")
         print(f"train_gru_sac: one super-step at {args.n_envs} envs: collect_sequences "
               f"({args.rollout_length} steps) {phase_s['collect']:.3f} s, train_sequences "
@@ -863,7 +853,7 @@ def learners(torch, dev) -> None:
                   f"top ops {[e.key for e in sorted(prof.key_averages(), key=lambda e: -e.count)[:3]]}")
             if dev.type == "cuda" and not kernels:
                 raise AssertionError("td3: the trace holds no CUDA kernel event")
-    launches = {w.__name__.rsplit(".", 1)[1]: w.launches for w in wrappers}
+    launches = dict(profiling.launches)
     print(f"learners: seconds an iteration {per_iter}; launches {launches}; phases 18-19 "
           f"{time.perf_counter() - t_phase:.1f} s")
     if any(launches.values()):
@@ -917,14 +907,9 @@ def analysis_apps(torch, dev, peak_flops_per_s: float) -> None:
     from raptor_tpu_torch.apps import (
         bench_scaling, failure_modes, profile_pretraining, recoverability, scripted_recovery,
         visualize)
-    from raptor_tpu_torch.ops import collect as ops_collect
-    from raptor_tpu_torch.ops import eval as ops_eval
-    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
-    from raptor_tpu_torch.ops import rollout as ops_rollout
+    from raptor_tpu_torch.utils import profiling
 
-    wrappers = (ops_rollout, ops_eval, ops_collect, ops_fma_peak)
-    for w in wrappers:
-        w.launches = 0
+    profiling.reset_launches()
     cuda = ["--device", str(dev)]
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1014,7 +999,7 @@ def analysis_apps(torch, dev, peak_flops_per_s: float) -> None:
         print(f"visualize: {text.splitlines()[0]}; {len(lines)} recorded messages")
         if (len(lines) != 2 + VISUALIZE_STEPS or not all(map(math.isfinite, sum(positions, [])))):
             raise AssertionError("visualize: the recorded session is not 2 + steps finite frames")
-    launches = {w.__name__.rsplit(".", 1)[1]: w.launches for w in wrappers}
+    launches = dict(profiling.launches)
     launches = {k: v + scaling_launches[k] for k, v in launches.items()}
     print(f"analysis apps: launches {launches} (bench_scaling's process: {scaling_launches}); "
           f"phase 20 {time.perf_counter() - t_phase:.1f} s")
@@ -1050,15 +1035,13 @@ def tools_and_dryrun(torch, dev) -> None:
     from raptor_tpu_torch.env import EnvConfig, InitConfig, L2F, sample_population
     from raptor_tpu_torch.ops import collect as ops_collect
     from raptor_tpu_torch.ops import eval as ops_eval
-    from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
+    from raptor_tpu_torch.utils import profiling
     from raptor_tpu_torch.ops import rollout as ops_rollout
     from raptor_tpu_torch.parallel.dryrun import dryrun_multichip
     from raptor_tpu_torch.tools import (
         arrest_phase_probe, hover_tail_probe, probe_collect_parity, quickstart)
 
-    wrappers = (ops_rollout, ops_eval, ops_collect, ops_fma_peak)
-    for w in wrappers:
-        w.launches = 0
+    profiling.reset_launches()
     t_phase = time.perf_counter()
 
     t0 = time.perf_counter()
@@ -1068,8 +1051,8 @@ def tools_and_dryrun(torch, dev) -> None:
     print(f"quickstart ({time.perf_counter() - t0:.2f} s): action {qs['raptor_action'][0]}, "
           f"reward mean {qs['env_reward_mean']:.5f}, B1 mean survived steps "
           f"{qs['rollout_mean_length']:.4f}, SAC critic loss {qs['sac_critic_loss']:.5f}, "
-          f"header {qs['header_lines']} lines; rollout launches {ops_rollout.launches}")
-    if ops_rollout.launches < 1 or not all(map(math.isfinite, five)) or qs["header_lines"] < 20:
+          f"header {qs['header_lines']} lines; rollout launches {profiling.launches["rollout"]}")
+    if profiling.launches["rollout"] < 1 or not all(map(math.isfinite, five)) or qs["header_lines"] < 20:
         raise AssertionError("quickstart: B1 did not launch or a line is not finite")
     # B1 of step 3 against its plain version on the same inputs
     io = qs["rollout_io"]
@@ -1089,8 +1072,8 @@ def tools_and_dryrun(torch, dev) -> None:
           f"against the committed TPU report: "
           + "; ".join(f"{t}: " + ", ".join(f"{k} {row[k]:.3e} ({tpu[t][k]:.3e})" for k in row)
                       for t, row in probe["steps"].items())
-          + f"; resets {probe['resets_first_steps']}; collect launches {ops_collect.launches}")
-    if ops_collect.launches < 1 or not probe["steps"]["t1"]["max"] < COLLECT_PARITY_GATE:
+          + f"; resets {probe['resets_first_steps']}; collect launches {profiling.launches["collect"]}")
+    if profiling.launches["collect"] < 1 or not probe["steps"]["t1"]["max"] < COLLECT_PARITY_GATE:
         raise AssertionError("probe_collect_parity: B3 did not launch or its step-1 error is "
                              "over the gate")
 
@@ -1106,8 +1089,8 @@ def tools_and_dryrun(torch, dev) -> None:
     failing = int((alive < 1).any(1).sum())
     print(f"hover_tail_probe ({time.perf_counter() - t0:.2f} s): share terminated {share:.4f} "
           f"against the committed {c_share:.4f} (bound {SHARE_SPREAD['aggregate']}); "
-          f"{failing} of 32 airframes with a termination; eval launches {ops_eval.launches}")
-    if ops_eval.launches < 1 or abs(share - c_share) > SHARE_SPREAD["aggregate"]:
+          f"{failing} of 32 airframes with a termination; eval launches {profiling.launches["eval"]}")
+    if profiling.launches["eval"] < 1 or abs(share - c_share) > SHARE_SPREAD["aggregate"]:
         raise AssertionError("hover_tail_probe: B2 did not launch or the share is off the report")
     # B2 of the probe against its plain version on the same airframes and states
     term = tail_cfg.termination
@@ -1163,7 +1146,7 @@ def tools_and_dryrun(torch, dev) -> None:
           f"{float(whole_reset.mean()):.4f} of rows")
     if not equal or float(whole_reset.mean()) == 0.0:
         raise AssertionError("B3 split: the halves differ from one launch on all rows")
-    launches = {w.__name__.rsplit(".", 1)[1]: w.launches for w in wrappers}
+    launches = dict(profiling.launches)
     print(f"tools and dry run: launches {launches} (the dry run's process: {dry['launches']}); "
           f"phase 21 {time.perf_counter() - t_phase:.1f} s")
     if min(launches["rollout"], launches["eval"], launches["collect"]) < 1:
@@ -1199,7 +1182,7 @@ def main() -> int:
     )
     from raptor_tpu_torch.env.randomization import sample_population
     from raptor_tpu_torch.env.types import tree_map
-    from raptor_tpu_torch.ops import bptt as ops_bptt
+    from raptor_tpu_torch.utils import profiling
     from raptor_tpu_torch.ops import build
     from raptor_tpu_torch.ops import collect as ops_collect
     from raptor_tpu_torch.ops import eval as ops_eval
@@ -1312,7 +1295,7 @@ def main() -> int:
     eval_err = max(eval_err, eval_err_32)
 
     # 5. the serving main path, with launch counts from 0
-    ops_eval.launches = ops_rollout.launches = ops_collect.launches = 0
+    profiling.reset_launches()
     t0 = time.perf_counter()
     stats = evaluate_cli.main([
         STUDENT, "--fused", "--n-airframes", str(N // 8), "--envs-per-airframe", "8",
@@ -1322,7 +1305,7 @@ def main() -> int:
     r_state, r_alive, r_len = ops_rollout.fused_rollout(
         frames, es.dynamics, hover.T, T_ROLLOUT, device=dev)
     torch.cuda.synchronize()
-    launches = {"eval": ops_eval.launches, "rollout": ops_rollout.launches}
+    launches = {"eval": profiling.launches["eval"], "rollout": profiling.launches["rollout"]}
     print(f"main path launches: {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
@@ -1333,15 +1316,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as wide_dir:
         wide_ckpt = os.path.join(wide_dir, "student_h32.npz")
         h5.save_actor(wide_ckpt, wide)
-        ops_eval.launches = 0
+        profiling.reset_launches()
         wide_stats = evaluate_cli.main([
             wide_ckpt, "--fused", "--n-airframes", "256", "--envs-per-airframe", "8",
             "--episode-length", str(T_EVAL), "--eval-parity-init", "--device", "cuda"])
-        print(f"main path, hidden 32: eval launches {ops_eval.launches}")
-        if ops_eval.launches < 1 or not all(math.isfinite(wide_stats[k]) for k in (
+        print(f"main path, hidden 32: eval launches {profiling.launches["eval"]}")
+        if profiling.launches["eval"] < 1 or not all(math.isfinite(wide_stats[k]) for k in (
                 "return/mean", "return/std", "episode_length/mean", "episode_length/std",
                 "share_terminated")):
-            raise AssertionError(f"main path, hidden 32: {ops_eval.launches} launches, "
+            raise AssertionError(f"main path, hidden 32: {profiling.launches["eval"]} launches, "
                                  f"{wide_stats}")
 
     # 6. collect kernel vs plain, at a full-warp width and at the two widths
@@ -1412,16 +1395,16 @@ def main() -> int:
         flatten_envs(sub_params), wide, wide_weights, with_b=False))
 
     # 7. the collect main path, with launch counts from 0
-    ops_eval.launches = ops_rollout.launches = ops_collect.launches = 0
+    profiling.reset_launches()
     t0 = time.perf_counter()
     report = bench_collect_cli.main([UNION, "--device", "cuda"])
     print(f"main path: collect benchmark CLI wall {time.perf_counter() - t0:.3f} s")
-    launches["collect"] = ops_collect.launches
-    print(f"collect main path launches: {ops_collect.launches}; eager "
+    launches["collect"] = profiling.launches["collect"]
+    print(f"collect main path launches: {profiling.launches["collect"]}; eager "
           f"{report['eager_collect_s']:.4f} s/round, kernel + relabel "
           f"{report['fused_collect_s']:.4f} s/round "
           f"({report['env_steps_per_round']} env-steps a round)")
-    if ops_collect.launches < 1:
+    if profiling.launches["collect"] < 1:
         raise AssertionError("the collect kernel never launched on the collect main path")
     if not (report["parity_ok"] and report["labels_finite_in_unit_box"]):
         raise AssertionError(f"collect main path: {report}")
@@ -1433,31 +1416,31 @@ def main() -> int:
     # loop collects through the eager path and evaluates through the eager
     # evaluation; its gradient steps run the BPTT kernels. The counts read
     # after it say which kernels it reached.
-    ops_eval.launches = ops_rollout.launches = ops_collect.launches = ops_bptt.launches = 0
+    profiling.reset_launches()
     with tempfile.TemporaryDirectory() as exp_dir:
         t0 = time.perf_counter()
         ckpt, summary = post_training_cli.main(
             [UNION, *RECIPE, *DEPTH, "--experiments-dir", exp_dir, "--device", "cuda"],
             return_summary=True)
         print(f"main path: distillation CLI wall {time.perf_counter() - t0:.3f} s")
-        launches["bptt"] = ops_bptt.launches
+        launches["bptt"] = profiling.launches["bptt"]
         n_steps = len(summary["loss_history"]) * summary["grad_steps_per_round"]
-        print(f"training main path launches: collect {ops_collect.launches}, eval "
-              f"{ops_eval.launches}, rollout {ops_rollout.launches}, bptt {ops_bptt.launches} "
+        print(f"training main path launches: collect {profiling.launches["collect"]}, eval "
+              f"{profiling.launches["eval"]}, rollout {profiling.launches["rollout"]}, bptt {profiling.launches["bptt"]} "
               f"({n_steps} gradient steps)")
-        if ops_bptt.launches < 3 * n_steps:
-            raise AssertionError(f"training main path: {ops_bptt.launches} BPTT launches for "
+        if profiling.launches["bptt"] < 3 * n_steps:
+            raise AssertionError(f"training main path: {profiling.launches["bptt"]} BPTT launches for "
                                  f"{n_steps} gradient steps (a forward and a backward, 3 "
                                  "launches, each)")
         self_test = h5.verify_checkpoint(ckpt)
         trained = from_numpy(h5.load_actor(ckpt), dev)
         # not the training path: the checkpoint it wrote is served by the
         # evaluate CLI through the eval kernel
-        ops_eval.launches = 0
+        profiling.reset_launches()
         flown = evaluate_cli.main([
             ckpt, "--fused", "--n-airframes", "256", "--envs-per-airframe", "8",
             "--episode-length", str(T_EVAL), "--eval-parity-init", "--device", "cuda"])
-        if ops_eval.launches < 1:
+        if profiling.launches["eval"] < 1:
             raise AssertionError("the evaluate CLI flew the trained student past the eval kernel")
     losses = summary["loss_history"]
     if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
@@ -1529,15 +1512,15 @@ def main() -> int:
           f"max abs err {fma_err:.3e}; equal inputs give equal outputs")
     x_full = 0.5 + torch.rand(n_full, device=dev, generator=g)
     fma_plain_ms = time_ms(torch, lambda: ops_fma_peak.fma_peak_plain(x_full, fma_depth), reps=3)
-    ops_fma_peak.launches = 0
+    profiling.reset_launches()
     with tempfile.TemporaryDirectory() as roof_dir:
         roof_out = os.path.join(roof_dir, "roofline.json")
         peak = roofline_cli.main(["--out", roof_out, "--device", "cuda"])["vpu_peak"]
-        launches["fma_peak"] = ops_fma_peak.launches
+        launches["fma_peak"] = profiling.launches["fma_peak"]
         pk = peak["fma_peak_flops_per_s"]
-        if ops_fma_peak.launches < 2 or pk is None:
-            raise AssertionError(f"roofline main path: {ops_fma_peak.launches} launches, peak {pk}")
-        print(f"roofline main path launches: {ops_fma_peak.launches}; measured FP32 FMA peak "
+        if profiling.launches["fma_peak"] < 2 or pk is None:
+            raise AssertionError(f"roofline main path: {profiling.launches["fma_peak"]} launches, peak {pk}")
+        print(f"roofline main path launches: {profiling.launches["fma_peak"]}; measured FP32 FMA peak "
               f"{pk / 1e12:.2f} TFLOP/s = {100 * pk / peak_flops:.1f} % of the {sku} data "
               f"sheet's {peak_flops / 1e12:.0f} ({peak['card']}); {peak['elements']} elements, "
               f"{peak['chains_per_thread']} chains a thread, block {peak['block']}, grid "
@@ -1569,8 +1552,7 @@ def main() -> int:
         # each sub-bench's process counted its wrappers' launches from 0 after
         # its warm-up
         by_sub = detail["launches"]
-        bench_launches = {k: sum(sub[k] for sub in by_sub.values())
-                          for k in ("rollout", "eval", "collect", "fma_peak", "bptt")}
+        bench_launches = {k: sum(sub[k] for sub in by_sub.values()) for k in profiling.KERNELS}
         print(f"bench main path launches: {by_sub}")
         eager = ("full_env_step_xla", "pretrain_env_steps_per_s")
         train = by_sub["train_env_steps_per_s"]
@@ -1594,16 +1576,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as exp_dir:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ops_eval.launches = ops_rollout.launches = ops_collect.launches = 0
-        ops_fma_peak.launches = 0
+        profiling.reset_launches()
         t0 = time.perf_counter()
         manifest, wave = pre_training_cli.main(
             [*WAVE, *WAVE_DEPTH, "--experiments-dir", exp_dir, "--device", "cuda"],
             return_summary=True)
         wave_wall = time.perf_counter() - t0
         wave_mem = torch.cuda.max_memory_allocated()
-        farm_launches = {"rollout": ops_rollout.launches, "eval": ops_eval.launches,
-                         "collect": ops_collect.launches, "fma_peak": ops_fma_peak.launches}
+        farm_launches = {"rollout": profiling.launches["rollout"], "eval": profiling.launches["eval"],
+                         "collect": profiling.launches["collect"], "fma_peak": profiling.launches["fma_peak"]}
         print(f"teacher-farm main path launches: {farm_launches}")
         if any(farm_launches.values()):
             raise AssertionError("the teacher farm is eager PyTorch, yet a kernel launched")

@@ -47,12 +47,12 @@ def _worker(n_devices: int, rank: int, port: int, args) -> dict:
     returns the same row (the slowest process's time)."""
     import torch.distributed as dist
 
-    from raptor_tpu_torch.bench import _kernel_wrappers
     from raptor_tpu_torch.distill import population
     from raptor_tpu_torch.env import EnvConfig, L2F
     from raptor_tpu_torch.parallel import make_mesh, shard_env_pytree
     from raptor_tpu_torch.parallel.multihost import host_generator, initialize_distributed
     from raptor_tpu_torch.rl import sac
+    from raptor_tpu_torch.utils.profiling import launches
 
     if args.platform == "cuda":
         device = torch.device("cuda", rank)
@@ -113,9 +113,9 @@ def _worker(n_devices: int, rank: int, port: int, args) -> dict:
     slowest = torch.tensor([(t_hi - t_lo) / (hi - lo)], dtype=torch.float64, device=device)
     dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
     per_call = float(slowest)
-    wrappers = _kernel_wrappers()  # every launch of this process, counted from its start
-    launches = torch.tensor([w.launches for w in wrappers.values()], device=device)
-    dist.all_reduce(launches)
+    # every launch of this process, counted from its start
+    summed = torch.tensor(list(launches.values()), device=device)
+    dist.all_reduce(summed)
     env_steps_per_call = k * args.envs_per_teacher * args.rollout_length
     row = {
         "devices": n_devices,
@@ -128,7 +128,7 @@ def _worker(n_devices: int, rank: int, port: int, args) -> dict:
         "seconds_per_super_step": per_call,
         "env_steps_per_s": env_steps_per_call / max(per_call, 1e-9),
         "critic_loss": loss,
-        "launches": dict(zip(wrappers, launches.tolist())),
+        "launches": dict(zip(launches, summed.tolist())),
         # processes on one host share its cores: past the core count they
         # time-share them, and weak scaling must flatten there
         "host_cpu_count": os.cpu_count(),

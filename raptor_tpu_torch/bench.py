@@ -26,10 +26,9 @@ metric to null instead of ending the bench. Every rate is the marginal cost
 between two iteration counts, each timed on the host clock after
 `torch.cuda.synchronize()`, so fixed per-batch overhead cancels.
 `detail.launches` holds, for each sub-bench, how often each kernel wrapper
-(`ops/rollout.py`, `ops/eval.py`, `ops/collect.py`, `ops/fma_peak.py`,
-`ops/bptt.py`) launched its kernels in the timed iterations (counted from 0
-after the warm-up): on a card the rollout sub-bench launches the rollout
-kernel 50 times, the eval sub-bench the eval kernel 25 times, and the
+launched its kernels in the timed iterations (`utils.profiling.launches`,
+set to 0 after the warm-up): on a card the rollout sub-bench launches the
+rollout kernel 50 times, the eval sub-bench the eval kernel 25 times, and the
 distillation sub-bench the BPTT kernels 3 times a gradient step; the other two
 run eager PyTorch and launch none.
 
@@ -78,20 +77,14 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _kernel_wrappers():
-    from raptor_tpu_torch.ops import bptt, collect, eval as eval_, fma_peak, rollout
-
-    return {"rollout": rollout, "eval": eval_, "collect": collect, "fma_peak": fma_peak,
-            "bptt": bptt}
-
-
 def _warm(device) -> None:
-    """End of a sub-bench's warm-up: wait for the device and set every kernel
-    wrapper's launch count to 0, so the counts a sub-bench reports are those of
-    its timed iterations."""
+    """End of a sub-bench's warm-up: wait for the device and set the launch
+    tally to 0, so the counts a sub-bench reports are those of its timed
+    iterations."""
+    from raptor_tpu_torch.utils.profiling import reset_launches
+
     _sync(device)
-    for wrapper in _kernel_wrappers().values():
-        wrapper.launches = 0
+    reset_launches()
 
 
 def _marginal(timed, lo: int, hi: int, work_per_iter: float) -> float:
@@ -333,8 +326,9 @@ def main(argv=None) -> dict:
     if args.sub:
         fn = globals()["bench_" + args.sub]
         value = fn(device, args.small, args)
-        out = {"value": value,
-               "launches": {k: w.launches for k, w in _kernel_wrappers().items()}}
+        from raptor_tpu_torch.utils.profiling import launches
+
+        out = {"value": value, "launches": dict(launches)}
         print(json.dumps(out))
         return out
 

@@ -20,8 +20,8 @@ Python loop of T env steps. The BPTT (`bptt_actions`) is one forward and one
 backward CUDA kernel on a card (`ops.bptt`, a `torch.autograd.Function`), and
 `torch.autograd` over `policy.network.apply_step` unrolled over T on the CPU.
 On a card the loss and gradients of a step of `make_train_from_aggregate`
-are one CUDA graph replay (`_StepGraph`: gather, BPTT and backward), between
-an eager draw of its minibatch and an eager Adam step.
+are one CUDA graph replay (`utils.graphs`: gather, BPTT and its gradient),
+after an eager draw of its minibatch and before an eager Adam step.
 The student's parameters are leaf tensors with `requires_grad`, updated in
 place by `torch.optim.Adam`; the aggregate is updated in place too. Randomness comes from one explicit
 `torch.Generator` on the data's device, so the random streams differ from the
@@ -56,6 +56,7 @@ from raptor_tpu_torch.ops import bptt as ops_bptt
 from raptor_tpu_torch.policy import network as student_net
 from raptor_tpu_torch.rl import networks
 from raptor_tpu_torch.rl.sac import average_over
+from raptor_tpu_torch.utils import graphs
 from raptor_tpu_torch.utils.profiling import span
 
 
@@ -485,110 +486,45 @@ def make_optimizer(cfg: DistillConfig):
     return init
 
 
+def _leaves(student_params) -> List[torch.Tensor]:
+    """The student's leaves, in the order its optimizer holds them."""
+    return [t for layer in student_params.values() for t in layer.values()]
+
+
 def _gather(agg: Aggregate, idx: torch.Tensor):
     """The minibatch of columns `idx` of the aggregate, widened to float32."""
-    return (agg.obs[:, idx].float(), agg.teacher_action[:, idx].float(),
-            agg.reset[:, idx].float())
+    with span("distill.gather"):
+        return (agg.obs[:, idx].float(), agg.teacher_action[:, idx].float(),
+                agg.reset[:, idx].float())
 
 
 def _loss_and_grad(student_params, obs, lab, rst, norm, cfg: DistillConfig, group=None):
-    """The BPTT loss of one minibatch (detached); its gradient accumulates on
-    the student's leaves."""
+    """The BPTT loss of one minibatch, detached, and its gradient in each of
+    the student's leaves, in the order of `_leaves`."""
     with span("distill.forward"):
         loss = bptt_loss(student_params, obs, lab, rst, norm, cfg.severe_weight,
                          cfg.severe_tilt, group)
     with span("distill.backward"):
-        loss.backward()
-    return loss.detach()
+        grads = torch.autograd.grad(loss, _leaves(student_params))
+    return loss.detach(), list(grads)
 
 
-def _grad_step(student_params, opt, obs, lab, rst, norm, cfg: DistillConfig, group=None,
-               graph=None):
-    """One BPTT gradient step; leaves the gradients cleared. With a process
-    group, the gradient of every leaf Adam steps (h0 included) and the loss
-    are averaged over the group, in one all_reduce, before the step: the
-    replicated students stay equal bit for bit.
-
-    With `graph` (a `_StepGraph` of this student, whose index buffer holds
-    the minibatch's columns; obs, lab and rst are then None), one replay of
-    it gives the loss and the gradients; Adam and the scheduler step as
-    without."""
+def _grad_step(student_params, opt, loss, grads, group=None):
+    """One Adam step on a step's loss and its gradients (in the order of
+    `_leaves`); leaves the gradients cleared. With a process group, the
+    gradients and the loss are averaged over the group, in one all_reduce,
+    before the step: the replicated students stay equal bit for bit. Returns
+    the loss."""
     adam, scheduler = opt
-    if graph is None:
-        loss = _loss_and_grad(student_params, obs, lab, rst, norm, cfg, group)
-    else:
-        with span("distill.graph"):
-            loss = graph.replay()
     if group is not None:
-        leaves = [p for g in adam.param_groups for p in g["params"]]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
         *grads, loss = average_over(group, [*grads, loss])
-        for p, g in zip(leaves, grads):
-            p.grad = g
+    for p, g in zip(_leaves(student_params), grads):
+        p.grad = g
     with span("distill.optimizer"):
         adam.step()
         scheduler.step()
         adam.zero_grad(set_to_none=True)
     return loss
-
-
-def _graph_steps(device: torch.device) -> bool:
-    """Whether `train_round` (without a process group) takes the loss and
-    gradients of its steps on `device` from a `_StepGraph`: on a card."""
-    return device.type == "cuda"
-
-
-def _step_key(student_params, opt, agg: Aggregate, norm) -> tuple:
-    """What a `_StepGraph` bakes in besides its trainer's config, by identity:
-    the student's leaves, the optimizer (whose leaves get the gradients), the
-    aggregate's tensors and the normalizer's."""
-    leaves = [t for layer in student_params.values() for t in layer.values()]
-    normed = () if norm is None else (norm["mean"], norm["std"])
-    return (*leaves, opt[0], agg.obs, agg.teacher_action, agg.reset, *normed)
-
-
-class _StepGraph:
-    """The loss and gradients of one step of `train_round` from static
-    buffers: the gather of the columns in `idx` (`_gather`) and
-    `_loss_and_grad` over them.
-
-    On a card they are captured once as a CUDA graph (after one eager step
-    of the optimizer, with the gradients cleared), and `replay` runs them
-    again: one launch of the graph, after which the leaves' gradients are the
-    tensors the capture made, which every replay overwrites. Adam and the
-    scheduler stay eager, in `_grad_step`, as the `randint` into `idx` does in
-    `train_round`. The B5 launches the graph holds count in
-    `ops.bptt.launches` at every replay. On the CPU nothing is captured and
-    `replay` runs the gather and `_loss_and_grad` eagerly."""
-
-    def __init__(self, key, student_params, opt, agg: Aggregate, norm, cfg: DistillConfig):
-        self.key = key
-        self.idx = torch.zeros(cfg.batch_size, dtype=torch.long, device=agg.obs.device)
-        self.leaves = [p for g in opt[0].param_groups for p in g["params"]]
-        self._body = lambda: _loss_and_grad(student_params, *_gather(agg, self.idx), norm, cfg)
-        self.graph, self.launches = None, 0
-        if agg.obs.device.type == "cuda":
-            opt[0].zero_grad(set_to_none=True)
-            before = ops_bptt.launches
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.loss = self._body()
-            self.launches, ops_bptt.launches = ops_bptt.launches - before, before
-            self.grads = [p.grad for p in self.leaves]
-            opt[0].zero_grad(set_to_none=True)
-
-    def matches(self, key) -> bool:
-        return len(key) == len(self.key) and all(a is b for a, b in zip(key, self.key))
-
-    def replay(self) -> torch.Tensor:
-        """The loss of the minibatch in `idx`; its gradient on the leaves."""
-        if self.graph is None:
-            return self._body()
-        self.graph.replay()
-        ops_bptt.launches += self.launches
-        for p, g in zip(self.leaves, self.grads):
-            p.grad = g
-        return self.loss.clone()
 
 
 def make_train_from_aggregate(cfg: DistillConfig, group=None):
@@ -598,46 +534,42 @@ def make_train_from_aggregate(cfg: DistillConfig, group=None):
     train_round(student, opt, agg, generator, norm) -> (student, opt, losses
     [steps]) updates the student in place.
 
-    On a card, without a process group, every step after the optimizer's
-    first takes its loss and gradients from one replay of a `_StepGraph`,
-    kept in the closure (with its config) and captured again when its key
-    (`_step_key`) changes; `distill()` reuses one student, optimizer and
+    Without a process group, a step's loss and gradients come from one call
+    of a `utils.graphs.Graphed` kept in the closure: the draw of the
+    minibatch's columns, then `_gather` and `_loss_and_grad` as its body. Its
+    key is the config and, by identity, the student's leaves, the aggregate's
+    tensors and the normalizer's; on a card the second step with a key
+    captures and later steps replay. `distill()` reuses one student and one
     in-place aggregate, so it captures once. Every step goes through
-    `_grad_step`, whose Adam step is the same on every path; the CPU and the
-    process group compute the loss and gradients eagerly there.
+    `_grad_step`, whose Adam step is the same on every path.
 
-    With a process group, `cfg` is this process's share
+    With a process group the step is eager, and `cfg` is this process's share
     (`parallel.mesh.shard_distill_config`): each process draws its
     batch_size columns from its own block of the aggregate with its own
     generator, and the replicated student steps on the gradient averaged
     over the group (`_grad_step`). The learning-rate schedule steps alike on
     every process, and the losses are the group's."""
-    graph: Optional[_StepGraph] = None
+    step = graphs.Graphed("distill.step")
 
     def train_round(student_params, opt, agg: Aggregate, generator, norm=None):
-        nonlocal graph
-        adam = opt[0]
-        graphed = group is None and _graph_steps(agg.obs.device)
-        key = _step_key(student_params, opt, agg, norm) if graphed else None
-        ready = graphed and graph is not None and graph.matches(key)
+        normed = () if norm is None else (norm["mean"], norm["std"])
+        key = (cfg, graphs.Identity(*_leaves(student_params), agg.obs, agg.teacher_action,
+                                    agg.reset, *normed))
+        specs = (("randint", (cfg.batch_size,), max(agg.size, 1)),)
+
+        def body(draws, _):
+            loss, grads = _loss_and_grad(student_params, *_gather(agg, draws[0]), norm, cfg,
+                                         group)
+            return [loss, *grads]
+
         losses = []
         for _ in range(cfg.grad_steps_per_round):
             with span("distill.step"):
-                if graphed and not ready and all(p in adam.state for g in adam.param_groups
-                                                 for p in g["params"]):
-                    graph = None  # the old graph's memory goes before the new capture
-                    graph, ready = _StepGraph(key, student_params, opt, agg, norm, cfg), True
-                with span("distill.gather"):
-                    if ready:
-                        torch.randint(0, max(agg.size, 1), (cfg.batch_size,),
-                                      generator=generator, out=graph.idx)
-                        obs = lab = rst = None
-                    else:
-                        obs, lab, rst = _gather(agg, torch.randint(
-                            0, max(agg.size, 1), (cfg.batch_size,), generator=generator,
-                            device=agg.obs.device))
-                losses.append(_grad_step(student_params, opt, obs, lab, rst, norm, cfg, group,
-                                         graph if ready else None))
+                if group is None:
+                    loss, *grads = step(key, generator, specs, body)
+                else:
+                    loss, *grads = body(graphs.draw(generator, specs), ())
+                losses.append(_grad_step(student_params, opt, loss, grads, group))
         return student_params, opt, torch.stack(losses)
 
     return train_round, make_optimizer(cfg)
@@ -654,8 +586,9 @@ def make_train_epoch(cfg: DistillConfig):
         n_batches = b // bs
         perm = torch.randperm(b, generator=generator, device=data.obs.device)[: n_batches * bs]
         losses = [
-            _grad_step(student_params, opt, data.obs[:, idx], data.teacher_action[:, idx],
-                       data.reset[:, idx], norm, cfg)
+            _grad_step(student_params, opt, *_loss_and_grad(
+                student_params, data.obs[:, idx], data.teacher_action[:, idx],
+                data.reset[:, idx], norm, cfg))
             for idx in perm.reshape(n_batches, bs)
         ]
         return student_params, opt, torch.stack(losses)

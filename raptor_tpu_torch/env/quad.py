@@ -20,7 +20,7 @@ observation) from those draws and the airframes alone. The draws' order and
 shapes are part of the API: the benchmark's reference draws them again from
 the same seed, and the generator's state after a call is that of these
 draws. On a card `reset`'s arithmetic runs as one CUDA graph replay
-(`env.graphs`); the auto-reset inside `step` stays eager.
+(`utils.graphs`); the auto-reset inside `step` stays eager.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from raptor_tpu_torch.env import dynamics, graphs, maths
+from raptor_tpu_torch.env import dynamics, maths
 from raptor_tpu_torch.env.types import (
     DynamicsParams,
     EnvConfig,
@@ -38,6 +38,7 @@ from raptor_tpu_torch.env.types import (
     observation_dim,
     where,
 )
+from raptor_tpu_torch.utils import graphs
 from raptor_tpu_torch.utils.profiling import span
 
 
@@ -227,21 +228,19 @@ class L2F:
         The draws come first (`state_draws`, on `generator`), then the
         arithmetic, which reads the airframes' `RESET_READS` alone. On a
         card that arithmetic is one CUDA graph replay from the third call
-        with the same sizes, configs and device (`env.graphs`), and the
+        with the same sizes, configs and device (`utils.graphs`), and the
         float leaves of the result are views of one buffer of the call's
         own. A subclass that draws its own initial states (`sample_state`
-        overridden) stays eager."""
+        overridden) cannot be keyed: it takes the eager `_reset`."""
         with span("env.reset"):
+            if type(self).sample_state is not L2F.sample_state:
+                return self._reset(params, generator)
             n = params.mass.shape[0]
             leaves = [getattr(params, k) for k in RESET_READS]
-            key = None
-            if type(self).sample_state is L2F.sample_state:
-                key = (type(self), n, self.config.init, self.config.observation,
-                       tuple(x.shape for x in leaves))
-            return _as_reset(_GRAPHED(
-                key, generator,
-                lambda: self._leaves_of_reset(params, self.sample_state(params, generator)),
-                state_draws(n), self._reset_from_draws, leaves))
+            key = (type(self), n, self.config.init, self.config.observation,
+                   tuple(x.shape for x in leaves))
+            return _as_reset(_GRAPHED(key, generator, state_draws(n), self._reset_from_draws,
+                                      leaves))
 
     def _reset(
         self, params: DynamicsParams, generator: torch.Generator

@@ -10,7 +10,7 @@ bit for bit. Everything is drawn on the generator's device.
 (`_population_from_draws`). The draws' order and shapes are part of the API:
 the benchmark's reference sampler draws them again from the same seed, and
 the generator's state after a call is that of these draws. On a card the
-arithmetic runs as one CUDA graph replay (`env.graphs`).
+arithmetic runs as one CUDA graph replay (`utils.graphs`).
 """
 
 from __future__ import annotations
@@ -20,8 +20,9 @@ import math
 
 import torch
 
-from raptor_tpu_torch.env import graphs, presets
+from raptor_tpu_torch.env import presets
 from raptor_tpu_torch.env.types import DynamicsParams
+from raptor_tpu_torch.utils import graphs
 from raptor_tpu_torch.utils.profiling import span
 
 
@@ -112,14 +113,9 @@ def sample_population(
     The draws come first (`population_draws`, on `generator`), then the
     arithmetic (`_population_from_draws`), which on a card is one CUDA graph
     replay from the third call with the same `n`, config and device
-    (`env.graphs`); its leaves are views of one buffer of the call's own."""
+    (`utils.graphs`); its leaves are views of one buffer of the call's own."""
     with span("env.sample_population"):
-        specs = population_draws(n)
-
-        def eager():
-            return _population_from_draws(graphs.draw(generator, specs), config)
-
-        leaves = _GRAPHED((n, config), generator, eager, specs,
+        leaves = _GRAPHED((n, config), generator, population_draws(n),
                           lambda draws, _: _population_from_draws(draws, config))
         return DynamicsParams(*leaves)
 

@@ -10,8 +10,8 @@ Counterpart of the JAX package's `lax.scan` under `jax.value_and_grad`
 `bptt` is the wrapper: a CPU tensor takes `bptt_plain` (the eager loop); a
 CUDA tensor launches the forward kernel, through the `torch.autograd.Function`
 `_Bptt` where a leaf records gradients (its backward launches the backward
-kernel and the sum of the sequences' gradient rows), or raises. `launches`
-counts kernel launches: 1 a forward, 2 a backward.
+kernel and the sum of the sequences' gradient rows), or raises. Each launch
+counts in `utils.profiling.launches`: 1 a forward, 2 a backward.
 """
 
 from __future__ import annotations
@@ -20,12 +20,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from raptor_tpu_torch.ops import build
-from raptor_tpu_torch.ops.eval import _layout, n_weights
+from raptor_tpu_torch.ops.eval import layout, n_weights
 from raptor_tpu_torch.ops.eval import require_built as eval_require_built
 from raptor_tpu_torch.ops.rollout import check_tensor
 from raptor_tpu_torch.policy import network
-
-launches = 0
+from raptor_tpu_torch.utils.profiling import launches
 
 OBS, ACT = network.OBS_DIM, network.ACTION_DIM
 SAVED_ROWS = 6  # saved a step and sequence: h entering, x, r, z, n, wh_n h + bh_n
@@ -54,7 +53,6 @@ def _pointers(leaves):
 def _forward(obs, reset, leaves, save: bool):
     """Launch the forward kernel: (actions [T, B, 4], saved [T, B, 6, H] or
     None)."""
-    global launches
     hidden, (t_len, b) = leaves[6].shape[-1], reset.shape
     actions = torch.empty((t_len, b, ACT), dtype=torch.float32, device=obs.device)
     saved = (torch.empty((t_len, b, SAVED_ROWS, hidden), dtype=torch.float32, device=obs.device)
@@ -68,7 +66,7 @@ def _forward(obs, reset, leaves, save: bool):
         )
     if rc != 0:
         raise RuntimeError(f"raptor_bptt_forward launch failed: CUDA error {rc}")
-    launches += 1
+    launches["bptt"] += 1
     return actions, saved
 
 
@@ -76,7 +74,6 @@ def _backward(obs, reset, saved, leaves, d_actions):
     """Launch the backward kernel and the sum of its per-sequence rows over
     the forward's `saved` activations and the upstream d_actions [T, B, 4]:
     the flat gradient [n_weights(H)] in the order of `leaves`."""
-    global launches
     hidden, (t_len, b) = leaves[6].shape[-1], reset.shape
     d_actions = d_actions.contiguous()
     partial = torch.empty((b, n_weights(hidden)), dtype=torch.float32, device=obs.device)
@@ -90,7 +87,7 @@ def _backward(obs, reset, saved, leaves, d_actions):
         )
     if rc != 0:
         raise RuntimeError(f"raptor_bptt_backward launch failed: CUDA error {rc}")
-    launches += 2
+    launches["bptt"] += 2
     return grad
 
 
@@ -110,7 +107,7 @@ class _Bptt(torch.autograd.Function):
     def backward(ctx, d_actions):
         obs, reset, saved, *leaves = ctx.saved_tensors
         grad, views, off = _backward(obs, reset, saved, leaves, d_actions), [], 0
-        for _, _, shape in _layout(leaves[6].shape[-1]):
+        for _, _, shape in layout(leaves[6].shape[-1]):
             size = torch.Size(shape).numel()
             views.append(grad[off : off + size].view(shape))
             off += size
@@ -142,7 +139,7 @@ def bptt(student_params, obs, reset):
     check_tensor("obs", obs, (t_len, b, OBS), device)
     check_tensor("reset", reset, (t_len, b), device)
     leaves = []
-    for layer, name, shape in _layout(hidden):
+    for layer, name, shape in layout(hidden):
         leaf = student_params[layer][name]
         check_tensor(f"{layer}/{name}", leaf, shape, device)
         leaves.append(leaf)

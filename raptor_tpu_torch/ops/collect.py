@@ -24,9 +24,10 @@ from the build.
 
 `collect_soa` is the kernel's wrapper: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes `collect_plain`, the same function in plain
-PyTorch. `launches` counts kernel launches. The kernel is built for 22
-observations and the hidden widths of `ops.eval.HIDDEN_WIDTHS`; another width
-raises `ValueError` and is collected by `distill.post_training.make_collect`.
+PyTorch. Each launch counts in `utils.profiling.launches`. The kernel is
+built for 22 observations and the hidden widths of `ops.eval.HIDDEN_WIDTHS`;
+another width raises `ValueError` and is collected by
+`distill.post_training.make_collect`.
 """
 
 from __future__ import annotations
@@ -59,8 +60,7 @@ from raptor_tpu_torch.ops.eval import (
 )
 from raptor_tpu_torch.ops.rollout import check_tensor
 from raptor_tpu_torch.policy import network
-
-launches = 0
+from raptor_tpu_torch.utils.profiling import launches
 
 OBS_CH = network.OBS_DIM  # policy observation channels recorded
 OUT_CH = OBS_CH + 1  # + the done flag
@@ -216,7 +216,6 @@ def collect_soa(
     card both are views of one channel-major [T, 23, N] buffer, allocated once
     per call; `.contiguous()` transposes obs where a caller needs it dense.
     Does not synchronize."""
-    global launches
     _check_config(config)
     device, n = state_soa.device, state_soa.shape[-1]
     hidden = hidden_width(weights)
@@ -245,7 +244,7 @@ def collect_soa(
         )
     if rc != 0:
         raise RuntimeError(f"raptor_collect launch failed: CUDA error {rc}")
-    launches += 1
+    launches["collect"] += 1
     return out[:, :OBS_CH].permute(0, 2, 1), out[:, OBS_CH]
 
 

@@ -16,7 +16,8 @@ A terminated env keeps its pre-step state, hidden state and previous action;
 reward and length accrue while the env is alive at step start.
 
 `eval_soa` is the kernel's wrapper: a CUDA tensor launches the kernel (or
-raises), a CPU tensor takes `eval_plain`. `launches` counts kernel launches.
+raises), a CPU tensor takes `eval_plain`. Each launch counts in
+`utils.profiling.launches`.
 The kernel flies each env on a team of lanes (`threads_per_env()`).
 """
 
@@ -43,15 +44,13 @@ from raptor_tpu_torch.env.types import (
 from raptor_tpu_torch.ops import build
 from raptor_tpu_torch.ops.rollout import check_tensor
 from raptor_tpu_torch.policy import network
-from raptor_tpu_torch.utils.profiling import span
-
-launches = 0
+from raptor_tpu_torch.utils.profiling import launches, span
 
 HIDDEN_WIDTHS = build.HIDDEN_WIDTHS  # the hidden widths the kernels are built for
 OBS, ACT = network.OBS_DIM, network.ACTION_DIM
 
 
-def _layout(hidden: int):
+def layout(hidden: int):
     """(layer, name, shape) of the flat policy layout of a hidden width
     (raptor_tpu/ops/pallas_collect.py:85-116), in order."""
     return (
@@ -113,7 +112,7 @@ def flatten_policy(policy_params: network.Params) -> torch.Tensor:
     bi . bh . h0 . w2 . b2, of the width of its hidden state."""
     hidden = policy_params["gru_1"]["initial_hidden_state"].shape[-1]
     parts = []
-    for layer, name, shape in _layout(hidden):
+    for layer, name, shape in layout(hidden):
         t = policy_params[layer][name]
         if tuple(t.shape) != shape:
             raise ValueError(f"{layer}/{name} has shape {tuple(t.shape)}, expected {shape}")
@@ -124,7 +123,7 @@ def flatten_policy(policy_params: network.Params) -> torch.Tensor:
 def unflatten_policy(weights: torch.Tensor) -> network.Params:
     out: Dict[str, Dict[str, torch.Tensor]] = {}
     off = 0
-    for layer, name, shape in _layout(hidden_width(weights)):
+    for layer, name, shape in layout(hidden_width(weights)):
         size = torch.Size(shape).numel()
         out.setdefault(layer, {})[name] = weights[off : off + size].reshape(shape)
         off += size
@@ -197,7 +196,6 @@ def eval_soa(
     """The kernel's wrapper: (weights [n_weights(H)], params [42, N], state
     [17, N]) -> (state [17, N], stats [3, N] = alive, length, return), H in
     HIDDEN_WIDTHS. Does not synchronize."""
-    global launches
     device, n = state_soa.device, state_soa.shape[-1]
     hidden = hidden_width(weights)
     require_built(hidden)
@@ -224,7 +222,7 @@ def eval_soa(
         )
     if rc != 0:
         raise RuntimeError(f"raptor_eval launch failed: CUDA error {rc}")
-    launches += 1
+    launches["eval"] += 1
     return out, stats
 
 

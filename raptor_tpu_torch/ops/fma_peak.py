@@ -9,8 +9,8 @@ FMA rate, the roofline's denominator.
 
 `fma_peak` is the kernel's wrapper: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes `fma_peak_plain`, the same function in plain
-PyTorch. `launches` counts kernel launches; `last_geometry` holds the chains a
-thread, the block and the grid of the latest launch.
+PyTorch. Each launch counts in `utils.profiling.launches`; `last_geometry`
+holds the chains a thread, the block and the grid of the latest launch.
 
 One rounding a step. The kernel's `fmaf` rounds `y * a + b` once. The plain
 version computes the step in float64 and rounds the result to float32: the
@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from raptor_tpu_torch.ops import build
+from raptor_tpu_torch.utils.profiling import launches
 
 A = 1.000001  # keeps y finite over any depth
 B = 1e-7
@@ -39,7 +40,6 @@ NFMA_BUILT = (1, 2, 4, 8, 16, 32, 64)  # csrc/fma_chain.cuh
 CHAINS_PER_THREAD = 8  # csrc/fma_peak.cu
 MAX_ELEMENTS = 2**31 - 2**20  # the kernel indexes with 32 bits
 
-launches = 0
 last_geometry: Optional[dict] = None
 
 
@@ -105,7 +105,7 @@ def fma_peak(
 ) -> torch.Tensor:
     """The kernel's wrapper: x (f32, any shape, contiguous) -> the same shape
     after depth x nfma chained FMAs on every element. Does not synchronize."""
-    global launches, last_geometry
+    global last_geometry
     device = x.device
     _check(x, device, nfma)
     if device.type == "cpu":
@@ -123,7 +123,7 @@ def fma_peak(
         )
     if rc != 0:
         raise RuntimeError(f"raptor_fma_peak launch failed: CUDA error {rc}")
-    launches += 1
+    launches["fma_peak"] += 1
     last_geometry = {
         "elements": x.numel(), "chains_per_thread": geometry[0], "block": geometry[1],
         "grid": geometry[2],

@@ -12,8 +12,8 @@ state; the step they die on counts toward their length.
 
 `rollout_soa` is the kernel's wrapper: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes `rollout_plain`, the same function in plain
-PyTorch. `launches` counts kernel launches. The kernel flies each env on a
-team of lanes (`threads_per_env()`).
+PyTorch. Each launch counts in `utils.profiling.launches`. The kernel
+flies each env on a team of lanes (`threads_per_env()`).
 """
 
 from __future__ import annotations
@@ -27,8 +27,7 @@ from raptor_tpu_torch.env import dynamics
 from raptor_tpu_torch.env.quad import terminated_by
 from raptor_tpu_torch.env.types import N_PARAM, N_STATE, DynamicsParams, State, where
 from raptor_tpu_torch.ops import build
-
-launches = 0
+from raptor_tpu_torch.utils.profiling import launches
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -86,7 +85,6 @@ def rollout_soa(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's wrapper: (params [42, N], state [17, N], action [4, N]) ->
     (state [17, N], stats [2, N] = alive, length). Does not synchronize."""
-    global launches
     device, n = state_soa.device, state_soa.shape[-1]
     check_tensor("params", params_soa, (N_PARAM, n), device)
     check_tensor("state", state_soa, (N_STATE, n), device)
@@ -109,7 +107,7 @@ def rollout_soa(
         )
     if rc != 0:
         raise RuntimeError(f"raptor_rollout launch failed: CUDA error {rc}")
-    launches += 1
+    launches["rollout"] += 1
     return out, stats
 
 

@@ -66,7 +66,6 @@ def run_sections(device: torch.device) -> dict:
     """The four sections in this process of the group; returns its report."""
     import torch.distributed as dist
 
-    from raptor_tpu_torch.bench import _kernel_wrappers
     from raptor_tpu_torch.distill import population
     from raptor_tpu_torch.distill import post_training
     from raptor_tpu_torch.env import EnvConfig, L2F, sample_population
@@ -78,12 +77,11 @@ def run_sections(device: torch.device) -> dict:
     from raptor_tpu_torch.parallel.multihost import host_generator, process_count, process_index
     from raptor_tpu_torch.policy import network as student_net
     from raptor_tpu_torch.rl import networks, runner, sac
+    from raptor_tpu_torch.utils.profiling import launches, reset_launches
 
     n, rank = process_count(), process_index()
     group = dist.group.WORLD if dist.is_initialized() else None
-    wrappers = _kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     seeded = lambda seed: torch.Generator(device=device).manual_seed(seed)  # noqa: E731
     env = L2F(EnvConfig())
     report = {"rank": rank, "devices": n, "seconds": {}}
@@ -202,7 +200,7 @@ def run_sections(device: torch.device) -> dict:
     if not report["b3_equals_one_launch"]:
         raise AssertionError("B3 sharded: the gathered blocks differ from one launch on all rows")
     report["seconds"]["b3"] = time.perf_counter() - t0
-    report["launches"] = {name: w.launches for name, w in wrappers.items()}
+    report["launches"] = dict(launches)
     return report
 
 

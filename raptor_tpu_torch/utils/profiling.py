@@ -11,16 +11,32 @@ boundaries only (a distillation step's gather, forward, backward and
 optimizer; an evaluation's sample, reset, pack, launch, unpack and summary),
 never inside a time-step loop. With no profiler running a span costs one
 check and records nothing.
+
+`launches` tallies the launches of the port's hand-written kernels, by
+wrapper (`ops/rollout.py`, `ops/eval.py`, `ops/collect.py`, `ops/fma_peak.py`,
+`ops/bptt.py`): each wrapper adds what it launched; a kernel inside a CUDA
+graph counts at each replay (`utils/graphs.py`); plain versions on the CPU
+add nothing. The bench, the dry run, `bench_scaling` and `chip_smoke.py` read
+it and set it to zero with `reset_launches`.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 
 import torch
 
 _NO_SPAN = contextlib.nullcontext()
+KERNELS = ("rollout", "eval", "collect", "fma_peak", "bptt")
+launches = collections.Counter(dict.fromkeys(KERNELS, 0))
+
+
+def reset_launches() -> None:
+    """Every kernel's count in `launches` to 0."""
+    for k in launches:
+        launches[k] = 0
 
 
 def synchronize() -> None:

@@ -33,8 +33,9 @@ from raptor_tpu_torch.apps import post_training as post_training_cli
 from raptor_tpu_torch.distill import post_training as pt
 from raptor_tpu_torch.ops import bptt as ops_bptt
 from raptor_tpu_torch.ops import build
-from raptor_tpu_torch.ops.eval import _layout, n_weights
+from raptor_tpu_torch.ops.eval import layout, n_weights
 from raptor_tpu_torch.policy import network
+from raptor_tpu_torch.utils.profiling import launches
 
 T, B = 37, 5
 RTOL = 1e-5
@@ -77,7 +78,7 @@ def inputs(case, seed=1):
 
 
 def leaves_of(params, hidden):
-    return [params[layer][name] for layer, name, _ in _layout(hidden)]
+    return [params[layer][name] for layer, name, _ in layout(hidden)]
 
 
 def run_host(lib, params, obs, reset, d_actions, hidden):
@@ -100,7 +101,7 @@ def check_host(lib, params, obs, reset, d_actions, norm, hidden, case, want, wan
                               d_actions, hidden)
     assert float((got - want).abs().max()) <= RTOL * float(want.abs().max())
     median = statistics.median(float(g.norm()) for g in want_grads)
-    for (layer, name, _), g, w in zip(_layout(hidden), got_grads, want_grads):
+    for (layer, name, _), g, w in zip(layout(hidden), got_grads, want_grads):
         err = float((g - w).norm()) / max(float(w.norm()), median)
         assert err <= RTOL, f"{layer}/{name}: {err:.3e}"
     if case in ("resets", "every", "normalized"):  # h0 receives a gradient at every reset
@@ -134,7 +135,7 @@ def test_host_forward_and_backward_match_jax(host, hidden, case):
     check_host(host, params, obs, reset, d_actions, norm, hidden, case,
                torch.from_numpy(np.array(want)),
                [torch.from_numpy(np.array(want_grads[layer][name]))
-                for layer, name, _ in _layout(hidden)])
+                for layer, name, _ in layout(hidden)])
 
 
 def test_host_forward_alone_and_unbuilt_width(host):
@@ -158,9 +159,9 @@ def test_host_forward_alone_and_unbuilt_width(host):
 def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
     params = student(16)
     obs, reset, _ = inputs("resets")
-    before = ops_bptt.launches
+    before = launches["bptt"]
     got = ops_bptt.bptt(params, obs, reset)
-    assert ops_bptt.launches == before == 0
+    assert launches["bptt"] == before == 0
     assert torch.equal(got, ops_bptt.bptt_plain(params, obs, reset))
     assert got.requires_grad
 

@@ -48,6 +48,7 @@ from raptor_tpu_torch.ops import build
 from raptor_tpu_torch.ops import collect as ops_collect
 from raptor_tpu_torch.ops import eval as ops_eval
 from raptor_tpu_torch.policy import network
+from raptor_tpu_torch.utils.profiling import launches
 
 N = 1024  # one full lane tile of the Pallas kernel: no padded lanes
 T = 20
@@ -417,7 +418,7 @@ def test_fused_collect_rejects_other_widths(pallas_runs):
 
 def test_cpu_call_runs_plain_without_counting(pallas_runs, student):
     tcfg, _, seed, ps, ss, _, _ = pallas_runs["truncation"]
-    before = ops_collect.launches
+    before = launches["collect"]
     from raptor_tpu_torch.env.types import DynamicsParams as DP
     from raptor_tpu_torch.env.types import State
 
@@ -426,4 +427,4 @@ def test_cpu_call_runs_plain_without_counting(pallas_runs, student):
     want = ops_collect.collect_plain(student[1], ps, ss, 12, seed, 0, tcfg)
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
     np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
-    assert ops_collect.launches == before
+    assert launches["collect"] == before

@@ -36,6 +36,7 @@ from raptor_tpu_torch.ops import collect as ops_collect
 from raptor_tpu_torch.ops import eval as ops_eval
 from raptor_tpu_torch.ops import rollout as ops_rollout
 from raptor_tpu_torch.policy import network
+from raptor_tpu_torch.utils.profiling import launches
 
 N = 4096
 NPZ = "raptor_tpu_torch/data/student_rateFlagCurMix.npz"
@@ -65,11 +66,11 @@ def inputs(card):
 @pytest.mark.cuda
 def test_rollout_kernel_matches_plain(inputs):
     ps, ss, act, _, _ = inputs
-    before = ops_rollout.launches
+    before = launches["rollout"]
     out, stats = ops_rollout.rollout_soa(ps, ss, act, 20, **OFF)
     ref_out, ref_stats = ops_rollout.rollout_plain(ps, ss, act, 20, **OFF)
     torch.cuda.synchronize()
-    assert ops_rollout.launches == before + 1
+    assert launches["rollout"] == before + 1
     torch.testing.assert_close(stats, ref_stats, atol=0, rtol=0)
     torch.testing.assert_close(out, ref_out, atol=2e-4, rtol=1e-3)
 
@@ -77,11 +78,11 @@ def test_rollout_kernel_matches_plain(inputs):
 @pytest.mark.cuda
 def test_eval_kernel_matches_plain(inputs):
     ps, ss, _, policy, weights = inputs
-    before = ops_eval.launches
+    before = launches["eval"]
     out, stats = ops_eval.eval_soa(weights, ps, ss, 25)
     ref_out, ref_stats = ops_eval.eval_plain(policy, ps, ss, 25)
     torch.cuda.synchronize()
-    assert ops_eval.launches == before + 1
+    assert launches["eval"] == before + 1
     agree = (stats[0] == ref_stats[0]) & (stats[1] == ref_stats[1])
     assert int(agree.sum()) >= 0.999 * N
     assert 0 < int(stats[0].sum()) < N  # some envs terminated, some flew on
@@ -147,11 +148,11 @@ def test_eval_kernel_matches_plain_at_hidden_width(inputs, card, hidden):
     ps, ss = inputs[0], inputs[1]
     policy = student(card, hidden)
     weights = ops_eval.flatten_policy(policy)
-    before = ops_eval.launches
+    before = launches["eval"]
     got = ops_eval.eval_soa(weights, ps, ss, 25)
     want = ops_eval.eval_plain(policy, ps, ss, 25)
     torch.cuda.synchronize()
-    assert ops_eval.launches == before + 1
+    assert launches["eval"] == before + 1
     assert 0 < int(got[1][0].sum()) < N  # some envs terminated, some flew on
     assert_eval_agrees(got, want, N)
 
@@ -232,9 +233,9 @@ def test_collect_kernel_matches_plain_without_resets(inputs, card):
     ps = inputs[0]
     frames = DynamicsParams.from_soa(ps)
     state = L2F(GENTLE).sample_state(frames, torch.Generator(device=card).manual_seed(2))
-    before = ops_collect.launches
+    before = launches["collect"]
     (obs, reset), (ref_obs, ref_reset) = _collect_both(inputs, GENTLE, 20, 3, state.to_soa())
-    assert ops_collect.launches == before + 1
+    assert launches["collect"] == before + 1
     assert obs.shape == (20, N, 22) and reset.shape == (20, N)
     assert float(ref_reset.sum()) == 0.0
     torch.testing.assert_close(reset, ref_reset, atol=0, rtol=0)
@@ -352,11 +353,11 @@ def test_fma_peak_kernel_matches_plain(card, n):
 
     g = torch.Generator(device=card).manual_seed(n)
     x = 0.5 + torch.rand(n, device=card, generator=g)
-    before = ops_fma_peak.launches
+    before = launches["fma_peak"]
     got = ops_fma_peak.fma_peak(x, 16, nfma=32)
     want = ops_fma_peak.fma_peak_plain(x, 16, nfma=32)
     torch.cuda.synchronize()
-    assert ops_fma_peak.launches == before + 1
+    assert launches["fma_peak"] == before + 1
     assert ops_fma_peak.last_geometry["elements"] == n
     assert ops_fma_peak.last_geometry["grid"] == -(-n // 2048)
     torch.testing.assert_close(got, want, atol=0, rtol=1e-5)

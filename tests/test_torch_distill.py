@@ -433,8 +433,9 @@ def test_three_adam_steps_match_optax(student, scheduled):
             jcfg.severe_weight, jcfg.severe_tilt)
         updates, opt_state = optim.update(grads, opt_state, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        tloss = pt._grad_step(tparams, opt, torch.from_numpy(obs), torch.from_numpy(label),
-                              torch.from_numpy(reset), None, tcfg)
+        tloss = pt._grad_step(tparams, opt, *pt._loss_and_grad(
+            tparams, torch.from_numpy(obs), torch.from_numpy(label), torch.from_numpy(reset),
+            None, tcfg))
         assert abs(float(tloss) - float(jloss)) < 1e-5
     assert opt[1].last_epoch == 3
     moved = 0.0

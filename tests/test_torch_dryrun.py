@@ -178,8 +178,8 @@ def worker(rank: int, port: int, inp: str, out: str, layout: str) -> None:
         res[f"train/grad/{name}"] = g.numpy()
         p.grad = None
     opt = pt.make_optimizer(train_cfg)(student)
-    res["train/loss"] = pt._grad_step(student, opt, *batch, None, train_cfg,
-                                      dist.group.WORLD).numpy()
+    loss_and_grads = pt._loss_and_grad(student, *batch, None, train_cfg, dist.group.WORLD)
+    res["train/loss"] = pt._grad_step(student, opt, *loss_and_grads, dist.group.WORLD).numpy()
     for name, p in leaves:
         res[f"train/param/{name}"] = p.detach().numpy()
 

@@ -1,5 +1,5 @@
 """A fresh population's sampler and reset, split into draws and arithmetic,
-with the arithmetic as a CUDA graph replay on a card (`env.graphs`).
+with the arithmetic as a CUDA graph replay on a card (`utils.graphs`).
 
 On the CPU everything stays eager. `sample_population` and `L2F.reset` must
 equal, bit for bit, a straight-line copy of the formulas they had before the
@@ -8,7 +8,9 @@ generator in the same state; the reset's graph body (`_reset_from_draws`,
 which sees only the airframes' `RESET_READS`) must equal the eager reset;
 two calls share no storage; the tally counts eager calls only. The graph
 cache's routing (first call eager, second captures, then replays; a new key
-eager; a bounded cache) is held with a stand-in for the capture.
+eager; a bounded cache; tensors keyed by identity) is held with a stand-in
+for the capture, and the draws (`rand`, `randn`, `randint` with a bound of
+the call's own) fresh and into static buffers alike.
 
 The tests marked `cuda` capture and replay on the card, against the eager
 path and the straight-line copy. The file imports neither JAX nor the JAX
@@ -19,16 +21,18 @@ package:
 
 import dataclasses
 import math
+import weakref
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from raptor_tpu_torch.env import L2F, EnvConfig, InitConfig, ObservationConfig, State
-from raptor_tpu_torch.env import dynamics, graphs, presets, quad
+from raptor_tpu_torch.env import dynamics, presets, quad
 from raptor_tpu_torch.env import randomization as rnd
 from raptor_tpu_torch.env.randomization import RandomizationConfig, sample_population
 from raptor_tpu_torch.env.types import DynamicsParams, tree_map
+from raptor_tpu_torch.utils import graphs
 
 # ---------------------------------------------------------------------------
 # the formulas before the split, straight-line: each draw where it is used
@@ -244,6 +248,8 @@ def test_the_cpu_counts_eager_calls_only():
 
 
 def test_a_subclass_with_its_own_states_is_never_keyed(monkeypatch):
+    """Its own `sample_state` cannot be keyed: `reset` takes the eager
+    `_reset` and never reaches the graph path."""
     class Handed(L2F):
         def sample_state(self, params, generator):
             return self.states
@@ -252,9 +258,9 @@ def test_a_subclass_with_its_own_states_is_never_keyed(monkeypatch):
     params = sample_population(generator("cpu", 1), 5)
     env.states = L2F(EnvConfig()).sample_state(params, generator("cpu", 2))
     keys = []
-    monkeypatch.setattr(quad, "_GRAPHED", lambda key, g, eager, *a: keys.append(key) or eager())
+    monkeypatch.setattr(quad, "_GRAPHED", lambda key, *a: keys.append(key))
     es, _ = env.reset(params, generator("cpu", 3))
-    assert keys == [None] and es.dynamics.position is env.states.position
+    assert keys == [] and es.dynamics.position is env.states.position
 
 
 class FakeGraph:
@@ -274,8 +280,8 @@ class FakeGraph:
 def test_routing_first_eager_then_capture_then_replay(monkeypatch):
     """The cache's routing with a stand-in for the capture and a generator
     that names a card: a key's first call eager, its second captures, later
-    calls replay; a new key eager; None, a capture in progress or an input
-    of another dtype eager; the oldest key goes beyond `ENTRIES`."""
+    calls replay; a new key eager; a capture in progress or an input of
+    another dtype eager; the oldest key goes beyond `ENTRIES`."""
     monkeypatch.setattr(graphs, "_Graph", FakeGraph)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     capturing = [False]
@@ -288,13 +294,12 @@ def test_routing_first_eager_then_capture_then_replay(monkeypatch):
     cached = graphs.Graphed("routing_probe")
     try:
         def call(key, inputs=()):
-            return cached(key, CardGenerator(), lambda: ["eager"], (), None, inputs)[0]
+            return cached(key, CardGenerator(), (), lambda draws, inputs: ["eager"], inputs)[0]
 
         assert [call("a") for _ in range(4)] == ["eager", "replay", "replay", "replay"]
         assert FakeGraph.built == [torch.device("cuda", 0)]
         assert graphs.calls["routing_probe"] == {"eager": 1, "capture": 1, "replay": 2}
         assert graphs.replay_share("routing_probe") == 0.5
-        assert call(None) == "eager"
         capturing[0] = True
         assert call("a") == "eager"
         capturing[0] = False
@@ -306,6 +311,55 @@ def test_routing_first_eager_then_capture_then_replay(monkeypatch):
         assert len(FakeGraph.built) == 2
     finally:
         del graphs.calls["routing_probe"]
+
+
+def test_a_key_names_tensors_by_identity(monkeypatch):
+    """`Identity` in a key: the same tensor objects are the same key, equal
+    values in other tensors a new one; a cached key keeps its tensors
+    alive."""
+    monkeypatch.setattr(graphs, "_Graph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+
+    class CardGenerator:
+        device = torch.device("cuda", 0)
+
+    cached = graphs.Graphed("identity_probe")
+    try:
+        def call(*tensors):
+            key = ("config", graphs.Identity(*tensors))
+            return cached(key, CardGenerator(), (), lambda draws, inputs: ["eager"])[0]
+
+        a, b = torch.zeros(3), torch.ones(2)
+        assert [call(a, b), call(a, b), call(a, b)] == ["eager", "replay", "replay"]
+        assert call(a.clone(), b) == "eager" and call(b, a) == "eager"
+        assert graphs.Identity(a, b) == graphs.Identity(a, b) != graphs.Identity(a, b.clone())
+        assert hash(graphs.Identity(a, b)) == hash(graphs.Identity(a, b))
+        watched = weakref.ref(a)
+        del a
+        assert watched() is not None  # held by the cached keys
+        cached.clear()
+        assert watched() is None
+    finally:
+        del graphs.calls["identity_probe"]
+
+
+@pytest.mark.parametrize("kind", ["rand", "randn", "randint"])
+def test_draws_fresh_and_into_static_buffers_are_equal(kind):
+    """`draw` makes the same numbers fresh or into buffers, and leaves the
+    generator in the same state; `randint`'s bound is the spec's own."""
+    specs = [(kind, (5, 3), 11), (kind, (7,), 1000)] if kind == "randint" else [
+        (kind, (5, 3)), (kind, (7,))]
+    dtype = torch.int64 if kind == "randint" else torch.float32
+    g, buffered_g = generator("cpu", 21), generator("cpu", 21)
+    fresh = graphs.draw(g, specs)
+    out = [torch.empty(shape, dtype=dtype) for _, shape, *_ in specs]
+    buffered = graphs.draw(buffered_g, specs, out)
+    assert all(x is o for x, o in zip(buffered, out))
+    assert_bitwise(buffered, fresh)
+    assert torch.equal(g.get_state(), buffered_g.get_state())
+    if kind == "randint":
+        assert int(fresh[0].max()) < 11 and int(fresh[1].max()) >= 11
 
 
 # ---------------------------------------------------------------------------

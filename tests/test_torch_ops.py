@@ -33,6 +33,7 @@ from raptor_tpu_torch.ops import build
 from raptor_tpu_torch.ops import eval as ops_eval
 from raptor_tpu_torch.ops import rollout as ops_rollout
 from raptor_tpu_torch.policy import network
+from raptor_tpu_torch.utils.profiling import launches
 
 N = 128
 NPZ = "raptor_tpu_torch/data/student_rateFlagCurMix.npz"
@@ -236,12 +237,12 @@ def test_fused_eval_rejects_other_widths(batch):
 
 def test_wrappers_run_plain_on_cpu_without_counting(batch, policy):
     _, _, ps, ss = batch
-    before = (ops_rollout.launches, ops_eval.launches)
+    before = (launches["rollout"], launches["eval"])
     out, stats = ops_rollout.rollout_soa(ps, ss, const_action(N), 5)
     ref = ops_rollout.rollout_plain(ps, ss, const_action(N), 5)
     np.testing.assert_array_equal(out.numpy(), ref[0].numpy())
     ops_eval.eval_soa(ops_eval.flatten_policy(policy[1]), ps, ss, 3)
-    assert (ops_rollout.launches, ops_eval.launches) == before
+    assert (launches["rollout"], launches["eval"]) == before
 
 
 @pytest.mark.parametrize("fault", ["dtype", "shape", "layout", "weights"])

@@ -29,6 +29,7 @@ from raptor_tpu.apps import roofline as jroofline
 from raptor_tpu_torch import bench as bench_module
 from raptor_tpu_torch.apps import roofline
 from raptor_tpu_torch.ops import fma_peak as ops_fma_peak
+from raptor_tpu_torch.utils.profiling import launches
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_KEYS = [
@@ -84,9 +85,9 @@ def test_fma_probe_plain_equals_host_build_on_random_inputs():
     host = ops_fma_peak.fma_peak_host(x, 32, 16)
     torch.testing.assert_close(plain, host, rtol=1e-5, atol=0)
     # the wrapper takes the plain version for a CPU tensor and counts no launch
-    before = ops_fma_peak.launches
+    before = launches["fma_peak"]
     torch.testing.assert_close(ops_fma_peak.fma_peak(x, 32, 16), plain, rtol=0, atol=0)
-    assert ops_fma_peak.launches == before
+    assert launches["fma_peak"] == before
     # two roundings a step (y * a + b in float32) is a different function
     y = x.clone()
     for _ in range(32 * 16):
@@ -211,10 +212,15 @@ def test_roofline_sweep_covers_every_built_fma_count_on_cpu(capsys):
 def test_bench_small_prints_five_numbers_and_roofline_reads_them(tmp_path):
     """`python -m raptor_tpu_torch.bench --small --device cpu`: one JSON line
     with the JAX bench's keys and five non-null sub-metrics (each from its own
-    subprocess); `roofline --bench` turns them into utilizations."""
+    subprocess); `roofline --bench` turns them into utilizations. The bench
+    and its sub-benches run on one thread each: beside the suite's other
+    workers, torch's default of one thread a core oversubscribes the host,
+    and the sub-benches' thousands of small operations each wait on every
+    thread of the pool."""
     proc = subprocess.run(
         [sys.executable, "-m", "raptor_tpu_torch.bench", "--small", "--device", "cpu"],
-        capture_output=True, text=True, cwd=ROOT, timeout=600)
+        capture_output=True, text=True, cwd=ROOT, timeout=600,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr
     line = json.loads(proc.stdout.strip().splitlines()[-1])
     assert set(line) == {"metric", "value", "unit", "vs_baseline", "detail"}

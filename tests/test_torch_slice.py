@@ -50,6 +50,7 @@ from raptor_tpu_torch.ops import rollout as ops_rollout
 from raptor_tpu_torch.policy.entry import entry
 from raptor_tpu_torch.policy.raptor import Raptor
 from raptor_tpu_torch.rl import evaluation
+from raptor_tpu_torch.utils.profiling import launches
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H5 = "artifacts/student_rateFlagCurMix.h5"
@@ -170,10 +171,10 @@ def test_post_training_cli_runs_on_cpu(tmp_path, capsys):
 
 def test_bench_collect_cli_runs_on_cpu(tmp_path):
     out = str(tmp_path / "report.json")
-    before = ops_collect.launches
+    before = launches["collect"]
     report = bench_cli.main(["--synthetic", "4", "--rollout-length", "20", "--reps", "1",
                              "--device", "cpu", "--out", out])
-    assert ops_collect.launches == before  # the CPU path runs the plain version
+    assert launches["collect"] == before  # the CPU path runs the plain version
     assert report["parity_ok"] and report["parity_step1_err"] < 1e-4
     assert report["parity_resets_first2"] == 0.0 and report["labels_finite_in_unit_box"]
     assert report["teachers"] == 4 and report["env_steps_per_round"] == 4 * 8 * 20
