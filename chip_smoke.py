@@ -11,8 +11,9 @@ with a non-zero exit code and no result line:
 2. build the CUDA kernels from `raptor_tpu_torch/csrc/` (nvcc, one process per
    unit, all in parallel: the eval and collect sources once a hidden width)
    and print each unit's seconds, ptxas' register and spill counts of every
-   kernel and the lanes a team of the rollout, eval and collect kernels
-   (`COLLECT_TEAM`);
+   kernel (the eval kernel must spill nothing at any width) and the lanes a
+   team of the rollout, eval and collect kernels (`COLLECT_TEAM`), and the
+   envs an eval team flies at each width (`EvalTeam<H>`);
 3. rollout kernel vs its plain PyTorch version on N = 16,384 random airframes:
    20 steps with termination off (atol 2e-4, rtol 1e-3 on every state field),
    then 512 steps at hover with default bounds (finite, |q| = 1 +- 1e-5);
@@ -89,10 +90,16 @@ with a non-zero exit code and no result line:
    events, median of 5 after a warm-up; 3 for the collect's and the BPTT's
    plain versions), the collect kernel also at a distillation round's 944
    envs, the BPTT kernels at phase 7b's shape and widths (forward with its
-   saves and backward apart, 10 launches in a row a timing), and print one
-   `{"kernels": [...]}` line with the launches of phases 5, 7
+   saves and backward apart, 10 launches in a row a timing), the eval kernel
+   also at every hidden width it is built for with termination off (a student
+   from the width's seed over the main path's envs, every env flying all 500
+   steps), and print the eval kernel's ride-along share at the main path
+   (`ops.eval.ride_along_share`: env-steps flown for envs already done, over
+   the env-steps run; it must stay under 2 %) and one `{"kernels": [...]}`
+   line with the launches of phases 5, 7
    and 9 (`launches`), those of the bench's processes in phase 10
-   (`bench_launches`), the lanes that fly one env (`threads_per_env`), error,
+   (`bench_launches`), the lanes that fly one env (`threads_per_env`; the eval
+   kernel's lanes a team over its envs a team), error,
    times and the bound (printed after phases 13 to 20, which must pass first);
 13. export, with every launch count from 0 until the end of phase 17 (the
    deployment path and the teacher gate run on the host or as eager PyTorch
@@ -1168,6 +1175,7 @@ def main() -> int:
     from raptor_tpu_torch.apps import post_training as post_training_cli
     from raptor_tpu_torch.apps import pre_training as pre_training_cli
     from raptor_tpu_torch.apps import roofline as roofline_cli
+    from raptor_tpu_torch.apps import team_sweep
     # the operation counts behind every bound below: one source with the
     # roofline report
     from raptor_tpu_torch.apps.roofline import (
@@ -1207,11 +1215,18 @@ def main() -> int:
             print(f"build: {line.strip()}")
         elif "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
+    eval_teams = {h: (ops_eval.lanes_per_team(h), ops_eval.envs_per_team(h))
+                  for h in ops_eval.HIDDEN_WIDTHS}
     threads_per_env = {"rollout": ops_rollout.threads_per_env(),
                        "eval": ops_eval.threads_per_env(),
                        "collect": ops_collect.threads_per_env()}
     print(f"lanes an env: {threads_per_env}; collect kernel: COLLECT_TEAM = "
-          f"{threads_per_env['collect']}")
+          f"{threads_per_env['collect']}; eval kernel (lanes, envs) a team by width: "
+          f"{eval_teams}")
+    spilled = {k: v for k, v in team_sweep.ptxas_counts(build.cuda_build_log()).items()
+               if k.startswith("eval_kernel") and v[1]}
+    if spilled:
+        raise AssertionError(f"eval kernel spills (registers, spill bytes): {spilled}")
     sass = build.cuda_sass_counts("fma_peak_kernelILi32E")
     if sass is None:
         print("sass: cuobjdump not found beside nvcc, the FFMA count of fma_peak_kernel<32> "
@@ -1689,6 +1704,27 @@ def main() -> int:
         })
         print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {max(t_ops, t_bytes):.4f} ms "
               f"({env_steps:.0f} env-steps, {sku} peaks)")
+    # the eval kernel's waste of flying several envs a team: the env-steps
+    # flown for envs already done, at the main path's shape
+    m_length = ops_eval.eval_soa(weights, m_ps, m_ss, T_EVAL)[1][1]
+    ride_along = ops_eval.ride_along_share(m_length, eval_teams[16][1], eval_teams[16][0])
+    print(f"eval: ride-along share {ride_along:.6f} at the eval-parity init ({eval_teams[16][1]} "
+          f"envs a team, mean length {float(m_length.mean()):.2f})")
+    if ride_along >= 0.02:
+        raise AssertionError(f"eval: ride-along share {ride_along} is 2 % or more")
+    # the eval kernel at every width it is built for, termination off: every
+    # env flies all T steps, whatever the student
+    eval_row = next(row for row in rows if row["name"] == "eval")
+    eval_row.update(envs_per_team=eval_teams[16][1], ride_along_share=ride_along, by_width={})
+    for h in ops_eval.HIDDEN_WIDTHS:
+        w_h = ops_eval.flatten_policy(network.init_params(
+            torch.Generator(device=dev).manual_seed(h), hidden_dim=h))
+        ms_h = time_ms(torch, lambda: ops_eval.eval_soa(w_h, m_ps, m_ss, T_EVAL, **off))
+        eval_row["by_width"][str(h)] = {"lanes": eval_teams[h][0], "envs": eval_teams[h][1],
+                                        "off_ms": ms_h}
+        print(f"eval, hidden {h}, termination off ({N * T_EVAL} env-steps; {eval_teams[h][0]} "
+              f"lanes fly {eval_teams[h][1]} envs): kernel {ms_h:.3f} ms")
+
     # at hover most rollout envs crash within ~50 steps and their teams leave
     # the loop; with termination off every env runs all 512 steps
     off_ms = time_ms(torch, lambda: ops_rollout.rollout_soa(ps, ss, hover, T_ROLLOUT, **off))

@@ -7,31 +7,53 @@
 // What bounds it: on paper FP32 FMA issue (about 1.1k operations of physics
 // plus 22*16 + 6*16*16 + 4*16 = 1,952 policy FMAs per env-step at H = 16: a
 // 0.653 ms bound at N = 16,384 x T = 500), beside it the special-function unit
-// for the 48 expf/tanhf of the GRU gates. In practice shared memory: every
-// env-step reads all 8.3 KB of weights from shared memory into registers, and
-// an SM delivers 128 B a clock, about 2.0 ms at that shape on an H100 SXM
-// whatever the lanes an env (PERF.md). The bytes moved in device memory are
-// the state, the parameters, the stats and the weights, about 5 MB.
+// for the 48 expf/tanhf of the GRU gates. Measured on an H100 (PERF.md), with
+// one env on a team of two lanes two things held it at 4.4 x that bound: the
+// 8.3 KB of weights every env-step reads from shared memory (LDS.128 at 128 B
+// a clock an SM, about 2.0 ms of the 2.9), and latency: ptxas' own schedule
+// waits about 1.8 cycles an instruction, so a scheduler needs several warps
+// to issue every cycle, and N = 16,384 gives it two. Flying two envs a team
+// halves the weight traffic; on eight lanes a team keeps four warps a
+// scheduler (two envs on two lanes halves the warps and loses more than it
+// gains: the sweep of K and E in PERF.md). The bytes moved in device memory
+// are the state, the parameters, the stats and the weights, about 5 MB.
 //
-// Design: a team of EVAL_TEAM lanes of one warp an env (team_step.cuh; 2,
-// the fastest of 1, 2, 4 and 8 on the card, PERF.md). The policy is split by
-// hidden unit and the rotor work by rotor, the exchange is shuffles under the
-// team's mask; state, hidden state, previous action and the parameters a lane uses
-// stay in registers for the whole episode. The weights come in as a device
-// array in the flat layout and are restaged at block start, in dynamic shared
-// memory, into the team-lane layout: a lane reads its rows with 16-byte
-// loads, and the K lanes of a team hit distinct banks. One build serves every
-// checkpoint of an instantiated width. Blocks are 1 to 4 warps, chosen so the
-// grid covers the SMs at small N; the ragged edge is masked by env index, a
-// whole team at a time. A terminated env keeps its pre-step state, hidden
-// state and previous action by a select and its team leaves the loop.
+// Design: a team of K lanes of one warp flies E envs (team_step.cuh
+// `EvalTeam<H>`, chosen per width by measurement, PERF.md). With E = 1
+// (team_eval_env) the policy is split by hidden unit and the rotor work by
+// rotor; with E > 1 (team_eval_envs) each env's physics runs so on a
+// sub-team of K / E lanes, the policy of the E envs is split by hidden unit
+// over all K lanes, and every weight a lane loads serves the E envs. Each
+// env's sums keep the order of one env on two lanes, so its bits do not
+// depend on K or E. Each env's state, hidden state, previous action and the
+// parameters a lane uses stay in registers for the whole episode. Team t
+// flies envs t, t + n_teams, ... (n_teams = ceil(N / E)), so a warp's state
+// and parameter accesses stay coalesced for each env. The weights come in as
+// a device array in the flat layout and are restaged at block start, in
+// dynamic shared memory, into the team-lane layout: a lane reads its rows
+// with 16-byte loads, and the K lanes of a team hit distinct banks. One build
+// serves every checkpoint of an instantiated width. Blocks are 1 to 4 warps,
+// chosen so the grid covers the SMs at small N. With E = 1 the ragged edge is
+// masked a team at a time and a team leaves the loop when its env is done;
+// with E > 1 the whole warp flies every step together, so its exchange needs
+// no convergence check: a terminated env, and a slot past N, keeps its state
+// by a select and rides along until every env of the warp is done, and the
+// GRU's r and z gates take a reciprocal without a branch (recip_fast).
 #include <cuda_runtime.h>
 
 #include "team_step.cuh"
 
+// One object a hidden width: nvcc compiles this file once for each width with
+// -DRAPTOR_HIDDEN=H (ops/build.py), all in parallel, and each object exports
+// raptor_eval_<H>, raptor_eval_lanes_<H> and raptor_eval_envs_<H>.
+#ifndef RAPTOR_HIDDEN
+#define RAPTOR_HIDDEN 16
+#endif
+
 namespace {
 
-constexpr int K = raptor::EVAL_TEAM;
+constexpr int K = raptor::EvalTeam<RAPTOR_HIDDEN>::K;
+constexpr int E = raptor::EvalTeam<RAPTOR_HIDDEN>::E;
 constexpr int kMaxThreads = 128;
 
 template <int H>
@@ -44,13 +66,26 @@ __global__ void __launch_bounds__(kMaxThreads)
   extern __shared__ __align__(16) float smem[];
   raptor::stage_team_weights<H, K>(weights, smem, threadIdx.x, blockDim.x);
   __syncthreads();
-  const long i = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) / K;
-  if (i >= n) return;
+  const long n_teams = (n + E - 1) / E;
+  const long thread = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long team = thread / K;
   const int lane = threadIdx.x % K;
-  const raptor::DeviceTeam<K> tm{((1u << K) - 1u) << ((threadIdx.x % 32) - lane), lane};
-  raptor::team_eval_env<raptor::DeviceTeam<K>, H>(
-      tm, i, n, reinterpret_cast<const raptor::Vec4*>(smem), weights, params,
-      state, state_out, stats, n_steps, dt, b, rw);
+  const auto* wt = reinterpret_cast<const raptor::Vec4*>(smem);
+  if constexpr (E == 1) {
+    if (team >= n_teams) return;
+    const raptor::DeviceTeam<K> tm{((1u << K) - 1u) << ((threadIdx.x % 32) - lane), lane};
+    raptor::team_eval_env<raptor::DeviceTeam<K>, H>(
+        tm, team, n, wt, weights, params, state, state_out, stats, n_steps, dt, b, rw);
+  } else {
+    // the whole warp runs every step together, so the team's exchange is
+    // under the full warp's mask (no convergence check a shuffle); a team
+    // past the last flies as done
+    if ((thread & ~31L) / K >= n_teams) return;
+    const raptor::DeviceTeam<K> tm{0xffffffffu, lane};
+    raptor::team_eval_envs<raptor::DeviceTeam<K>, H, E>(
+        tm, team, n_teams, n, wt, weights, params, state, state_out, stats, n_steps, dt,
+        b, rw);
+  }
 }
 
 template <int H>
@@ -61,7 +96,8 @@ int launch(const float* weights, const float* params, const float* state,
   const cudaError_t err = cudaFuncSetAttribute(
       eval_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long n_threads = static_cast<long>(n) * K;
+  // the threads the launch has: K a team, one team for every E envs
+  const long n_threads = (static_cast<long>(n) + E - 1) / E * K;
   const int threads = raptor::team_block_threads(n_threads);
   const int blocks = static_cast<int>((n_threads + threads - 1) / threads);
   eval_kernel<H><<<blocks, threads, bytes, stream>>>(
@@ -70,13 +106,6 @@ int launch(const float* weights, const float* params, const float* state,
 }
 
 }  // namespace
-
-// One object a hidden width: nvcc compiles this file once for each width with
-// -DRAPTOR_HIDDEN=H (ops/build.py), all in parallel, and each object exports
-// raptor_eval_<H>.
-#ifndef RAPTOR_HIDDEN
-#define RAPTOR_HIDDEN 16
-#endif
 
 // weights (flat policy layout of hidden width RAPTOR_HIDDEN), params [42, n],
 // state [17, n] in; state_out [17, n], stats [3, n] (alive, length, return)
@@ -96,3 +125,7 @@ extern "C" int RAPTOR_PASTE(raptor_eval_, RAPTOR_HIDDEN)(
                             r_linear_velocity, r_angular_velocity, r_action},
       static_cast<cudaStream_t>(stream));
 }
+
+// the eval kernel's team at this width: K lanes, which fly E envs
+extern "C" int RAPTOR_PASTE(raptor_eval_lanes_, RAPTOR_HIDDEN)() { return K; }
+extern "C" int RAPTOR_PASTE(raptor_eval_envs_, RAPTOR_HIDDEN)() { return E; }

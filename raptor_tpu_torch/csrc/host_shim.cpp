@@ -31,18 +31,25 @@ extern "C" int raptor_rollout_host(const float* params, const float* state,
 
 namespace {
 
-template <int H>
+// The eval kernel's teams at hidden width H: K lanes, each team flying E envs
+template <int H, int K, int E>
 int eval_host(const float* weights, const float* params, const float* state,
               float* state_out, float* stats, int n, int n_steps, float dt,
               raptor::Bounds b, raptor::RewardWeights rw) {
-  constexpr int K = raptor::EVAL_TEAM;
   std::vector<raptor::Vec4> wt(raptor::TeamLayout<H, K>::FLOATS / 4);
   raptor::stage_team_weights<H, K>(weights, &wt[0].x, 0, 1);
   const raptor::HostTeam<K> tm;
-  for (long i = 0; i < n; ++i) {
-    raptor::team_eval_env<raptor::HostTeam<K>, H>(tm, i, n, wt.data(), weights,
-                                                  params, state, state_out,
-                                                  stats, n_steps, dt, b, rw);
+  const long n_teams = (static_cast<long>(n) + E - 1) / E;
+  for (long team = 0; team < n_teams; ++team) {
+    if constexpr (E == 1) {
+      raptor::team_eval_env<raptor::HostTeam<K>, H>(tm, team, n, wt.data(), weights,
+                                                    params, state, state_out, stats,
+                                                    n_steps, dt, b, rw);
+    } else {
+      raptor::team_eval_envs<raptor::HostTeam<K>, H, E>(tm, team, n_teams, n, wt.data(),
+                                                        weights, params, state, state_out,
+                                                        stats, n_steps, dt, b, rw);
+    }
   }
   return 0;
 }
@@ -90,22 +97,42 @@ int bptt_host(const raptor::StudentLeaves& w, const float* obs, const float* res
 
 }  // namespace
 
-// -1 for a hidden width that is not instantiated
-extern "C" int raptor_eval_host(const float* weights, const float* params,
-                                const float* state, float* state_out,
-                                float* stats, int n, int n_steps, int hidden,
-                                float dt, float pos_bound, float linvel_bound,
-                                float angvel_bound, float r_scale,
-                                float r_constant, float r_position,
-                                float r_orientation, float r_linear_velocity,
-                                float r_angular_velocity, float r_action) {
-  const raptor::Bounds b{pos_bound, linvel_bound, angvel_bound};
-  const raptor::RewardWeights rw{r_scale,           r_constant,
-                                 r_position,        r_orientation,
-                                 r_linear_velocity, r_angular_velocity,
-                                 r_action};
-#define RAPTOR_RUN(H) \
-  return eval_host<H>(weights, params, state, state_out, stats, n, n_steps, dt, b, rw)
+#define RAPTOR_EVAL_ARGS                                                          \
+  const float *weights, const float *params, const float *state,                \
+      float *state_out, float *stats, int n, int n_steps, int hidden, float dt, \
+      float pos_bound, float linvel_bound, float angvel_bound, float r_scale,   \
+      float r_constant, float r_position, float r_orientation,                  \
+      float r_linear_velocity, float r_angular_velocity, float r_action
+#define RAPTOR_EVAL_RUN(H, K, E)                                                \
+  return eval_host<H, K, E>(weights, params, state, state_out, stats, n, n_steps, \
+                         dt, raptor::Bounds{pos_bound, linvel_bound, angvel_bound}, \
+                         raptor::RewardWeights{r_scale, r_constant, r_position,     \
+                                               r_orientation, r_linear_velocity,    \
+                                               r_angular_velocity, r_action})
+
+// The eval kernel's teams at a hidden width (EvalTeam<hidden>: K lanes fly E
+// envs); -1 for a hidden width that is not instantiated
+extern "C" int raptor_eval_host(RAPTOR_EVAL_ARGS) {
+#define RAPTOR_RUN(H) RAPTOR_EVAL_RUN(H, raptor::EvalTeam<H>::K, raptor::EvalTeam<H>::E)
+  RAPTOR_HIDDEN_DISPATCH(hidden, RAPTOR_RUN)
+#undef RAPTOR_RUN
+}
+
+// raptor_eval_host with one env on each team of two lanes, whatever team the
+// width takes: the order of every sum of every width's kernel, so what every
+// env's bits are held to
+extern "C" int raptor_eval_unblocked_host(RAPTOR_EVAL_ARGS) {
+#define RAPTOR_RUN(H) RAPTOR_EVAL_RUN(H, 2, 1)
+  RAPTOR_HIDDEN_DISPATCH(hidden, RAPTOR_RUN)
+#undef RAPTOR_RUN
+}
+#undef RAPTOR_EVAL_RUN
+#undef RAPTOR_EVAL_ARGS
+
+// the eval kernel's envs a team at a hidden width (EvalTeam<hidden>::E); -1
+// for a width that is not instantiated
+extern "C" int raptor_eval_envs_host(int hidden) {
+#define RAPTOR_RUN(H) return raptor::EvalTeam<H>::E
   RAPTOR_HIDDEN_DISPATCH(hidden, RAPTOR_RUN)
 #undef RAPTOR_RUN
 }

@@ -67,6 +67,5 @@ extern "C" int raptor_rollout(const float* params, const float* state,
   return static_cast<int>(cudaGetLastError());
 }
 
-// lanes an env of the rollout and of the eval kernel
+// lanes an env of the rollout kernel
 extern "C" int raptor_rollout_threads_per_env() { return K; }
-extern "C" int raptor_eval_threads_per_env() { return raptor::EVAL_TEAM; }

@@ -1,7 +1,10 @@
 // One env flown by a team of K lanes of one warp: the per-env loops of the
 // rollout (rollout.cu), eval (eval.cu) and collect (collect.cu) kernels, shared
 // with the host shim (host_shim.cpp) that the CPU tests build with g++. The
-// one copy of the physics of all three is body_derivative and team_rk4.
+// one copy of the physics of all three is body_derivative and team_rk4. The
+// eval kernel can also fly several envs on one team (team_eval_envs): each
+// env's physics on a sub-team of the team's lanes, the envs' policy over all
+// of them.
 //
 // How the work of an env-step is split over the team:
 // - policy, by hidden unit: lane l owns units l*H/K .. (l+1)*H/K - 1 (their
@@ -40,15 +43,29 @@
 
 namespace raptor {
 
-// Lanes an env of the eval, the rollout and the collect kernel, chosen by
-// measurement over 1, 2, 4 and 8 (apps/team_sweep.py, PERF.md); compile-time,
-// one value a build. The rollout flies fastest on one lane: a team of one
-// exchanges nothing and keeps only the parameters in registers. The collect,
-// with a few thousand envs or fewer, flies fastest on four: there the warps
-// in flight, not the weights' shared-memory traffic, set its time.
-constexpr int EVAL_TEAM = 2;
+// Lanes an env of the rollout and the collect kernel, chosen by measurement
+// over 1, 2, 4 and 8 (apps/team_sweep.py, PERF.md); compile-time, one value a
+// build. The rollout flies fastest on one lane: a team of one exchanges
+// nothing and keeps only the parameters in registers. The collect, with a few
+// thousand envs or fewer, flies fastest on four: there the warps in flight,
+// not the weights' shared-memory traffic, set its time.
 constexpr int ROLLOUT_TEAM = 1;
 constexpr int COLLECT_TEAM = 4;
+
+// The eval kernel's team at hidden width H: K lanes fly E envs, E dividing K.
+// With E = 1 (team_eval_env) the K lanes split one env's policy by hidden
+// unit and its rotor work by rotor; with E > 1 (team_eval_envs) each env's
+// physics runs so on a sub-team of K / E lanes, and the policy of the E envs
+// is split by hidden unit over all K, so every weight a lane loads serves the
+// E envs. Chosen per width by measurement over K in {1, 2, 4, 8, 16} and E in
+// {1, 2, 4} (apps/team_sweep.py, PERF.md): 8 lanes for 2 envs wherever that
+// fits without a spill, else the 2 lanes for 1 env of the kernel before.
+template <int H>
+struct EvalTeam {
+  static constexpr int K = H <= 32 ? 8 : 2;
+  static constexpr int E = H <= 32 ? 2 : 1;
+  static_assert(K % E == 0, "E envs split the team into sub-teams of K / E lanes");
+};
 
 constexpr int COMMON = 13;  // p(3) q(4) v(3) w(3): the state every lane holds
 
@@ -101,13 +118,42 @@ struct DeviceTeam {
     if (K > 1) v[0] = __shfl_sync(mask, v[0], 0, K);
 #endif
   }
-  // all[0][i] <- own[0][i % U] of lane i / U
-  template <int U, int M = U * K>
+  // whether v[0] is nonzero on every lane of the mask
+  RAPTOR_HD bool all(const int* v) const {
+#ifdef __CUDA_ARCH__
+    return K == 1 ? v[0] != 0 : __all_sync(mask, v[0]) != 0;
+#else
+    return v[0] != 0;
+#endif
+  }
+  // v[0] <- 0 on lanes l % G == 0, else lane l - 1's v[0]: hands a chained
+  // sum on to the next lane of each group of G
+  template <int G>
+  RAPTOR_HD void hand_on(float* v) const {
+#ifdef __CUDA_ARCH__
+    const float prev = __shfl_up_sync(mask, v[0], 1, K);
+    v[0] = l % G == 0 ? 0.f : prev;
+#endif
+  }
+  // v[0] <- lane G - 1's v[0] + lane 2G - 1's v[0] (K = 2G): the sum of two
+  // halves' chains, as a two-lane butterfly adds them
+  template <int G>
+  RAPTOR_HD void halves(float* v) const {
+#ifdef __CUDA_ARCH__
+    const float lo = __shfl_sync(mask, v[0], G - 1, K), hi = __shfl_sync(mask, v[0], 2 * G - 1, K);
+    v[0] = lo + hi;
+#endif
+  }
+  // this lane in its sub-team of the aligned Q lanes that hold it
+  template <int Q>
+  RAPTOR_HD DeviceTeam<Q> sub() const { return DeviceTeam<Q>{mask, l % Q}; }
+  // all[0][i] <- own[0][i % U] of lane (i / U) * S
+  template <int U, int M = U * K, int S = 1>
   RAPTOR_HD void gather(const float (*own)[U], float (*all)[M]) const {
 #ifdef __CUDA_ARCH__
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      all[0][i] = K == 1 ? own[0][i % U] : __shfl_sync(mask, own[0][i % U], i / U, K);
+      all[0][i] = K == 1 ? own[0][i % U] : __shfl_sync(mask, own[0][i % U], (i / U) * S, K);
     }
 #endif
   }
@@ -131,10 +177,27 @@ struct HostTeam {
   void bcast0(int* v) const {
     for (int l = 1; l < K; ++l) v[l] = v[0];
   }
-  template <int U, int M = U * K>
+  bool all(const int* v) const {
+    for (int l = 0; l < K; ++l) {
+      if (!v[l]) return false;
+    }
+    return true;
+  }
+  template <int G>
+  void hand_on(float* v) const {
+    for (int l = K - 1; l >= 0; --l) v[l] = l % G == 0 ? 0.f : v[l - 1];
+  }
+  template <int G>
+  void halves(float* v) const {
+    const float s = v[G - 1] + v[2 * G - 1];
+    for (int l = 0; l < K; ++l) v[l] = s;
+  }
+  template <int Q>
+  HostTeam<Q> sub() const { return HostTeam<Q>{}; }
+  template <int U, int M = U * K, int S = 1>
   void gather(const float (*own)[U], float (*all)[M]) const {
     for (int l = 0; l < K; ++l) {
-      for (int i = 0; i < M; ++i) all[l][i] = own[i / U][i % U];
+      for (int i = 0; i < M; ++i) all[l][i] = own[(i / U) * S][i % U];
     }
   }
 };
@@ -500,6 +563,199 @@ RAPTOR_HD void team_policy_step(const Team& tm, const Vec4* Wt, const LaneParams
   }
 }
 
+// The policy of E envs of a team (team_eval_envs): value arrays are
+// [E][Team::N][...] (env, lane this thread runs, entries), and every 16-byte
+// weight load serves the E envs before the next. Each env's sums run in the
+// order of the functions above on a team of two lanes, whatever the team's K:
+// the bias first, then the columns in order; the head's partial sums chained
+// over the lanes that a lane of a two-lane team stands for, then the
+// butterfly, then the bias. So an env's bits do not depend on K or E.
+
+// x_own[e][j][u] = relu(b0 + w0 obs[e]) for the units of lane l (entry j);
+// obs is [E][OBS]
+template <int H, int K, int E, int N>
+RAPTOR_HD void dense0_envs(const Vec4* Wt, int l, int j, const float* obs,
+                           float (*x_own)[N][TeamLayout<H, K>::U]) {
+  using T = TeamLayout<H, K>;
+#pragma unroll
+  for (int u = 0; u < T::U; ++u) {
+    const float b0 = load4(Wt + (T::BIAS + 2 * u) * K + l).x;
+    float acc[E];
+#pragma unroll
+    for (int v = 0; v < E; ++v) acc[v] = b0;
+#pragma unroll
+    for (int c = 0; c < T::OC; ++c) {
+      const Vec4 w = load4(Wt + (T::W0 + u * T::OC + c) * K + l);
+#pragma unroll
+      for (int v = 0; v < E; ++v) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (4 * c + e < OBS) acc[v] += comp(w, e) * obs[v * OBS + 4 * c + e];
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < E; ++v) x_own[v][j][u] = max_nan(acc[v], 0.f);
+  }
+}
+
+// The GRU's new hidden values of lane l's units (entry j) from each env's
+// whole x and h. The r and z gates take their reciprocal from recip_fast, and
+// a unit whose gate left its range takes sigmoid's 1.f / d: the same bits as
+// gru_lane's.
+template <int H, int K, int E, int N>
+RAPTOR_HD void gru_envs(const Vec4* Wt, int l, int j, const float (*x)[N][H],
+                        const float (*h)[N][H], const float (*h_own)[N][TeamLayout<H, K>::U],
+                        float (*h_new_own)[N][TeamLayout<H, K>::U]) {
+  using T = TeamLayout<H, K>;
+#pragma unroll
+  for (int u = 0; u < T::U; ++u) {
+    const Vec4 bi = load4(Wt + (T::BIAS + 2 * u) * K + l);
+    const Vec4 bh = load4(Wt + (T::BIAS + 2 * u + 1) * K + l);
+    float gi_r[E], gi_z[E], gi_n[E], gh_r[E], gh_z[E], gh_n[E];
+#pragma unroll
+    for (int v = 0; v < E; ++v) {
+      gi_r[v] = bi.y;
+      gi_z[v] = bi.z;
+      gi_n[v] = bi.w;
+      gh_r[v] = bh.x;
+      gh_z[v] = bh.y;
+      gh_n[v] = bh.z;
+    }
+#pragma unroll
+    for (int c = 0; c < T::C; ++c) {
+      const Vec4* row = Wt + (T::GRU + (u * T::C + c) * 6) * K + l;
+      const Vec4 wir = load4(row), whr = load4(row + K);
+      const Vec4 wiz = load4(row + 2 * K), whz = load4(row + 3 * K);
+      const Vec4 win = load4(row + 4 * K), whn = load4(row + 5 * K);
+#pragma unroll
+      for (int v = 0; v < E; ++v) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float xj = x[v][j][4 * c + e], hj = h[v][j][4 * c + e];
+          gi_r[v] += comp(wir, e) * xj;
+          gh_r[v] += comp(whr, e) * hj;
+          gi_z[v] += comp(wiz, e) * xj;
+          gh_z[v] += comp(whz, e) * hj;
+          gi_n[v] += comp(win, e) * xj;
+          gh_n[v] += comp(whn, e) * hj;
+        }
+      }
+    }
+    // sigmoid(x) = 1.f / d, d = 1.f + expf(-x)
+    float dr[E], dz[E], r[E], z[E];
+    bool rare = false;
+#pragma unroll
+    for (int v = 0; v < E; ++v) {
+      dr[v] = 1.f + expf(-(gi_r[v] + gh_r[v]));
+      dz[v] = 1.f + expf(-(gi_z[v] + gh_z[v]));
+      r[v] = recip_fast(dr[v], rare);
+      z[v] = recip_fast(dz[v], rare);
+    }
+    if (rare) {
+#pragma unroll
+      for (int v = 0; v < E; ++v) {
+        r[v] = 1.f / dr[v];
+        z[v] = 1.f / dz[v];
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < E; ++v) {
+      const float n = tanhf(gi_n[v] + r[v] * gh_n[v]);
+      h_new_own[v][j][u] = (1.f - z[v]) * n + z[v] * h_own[v][j][u];
+    }
+  }
+}
+
+// One policy step of E envs of the team: from each lane's x_own =
+// relu(dense_0 obs) of its units, the GRU's new hidden state (h_new whole,
+// h_new_own the lane's units) and every env's clipped action on every lane.
+// The head sums as a team of two lanes does: the K / 2 lanes of each half of
+// the team chain their partial sums in order (a lane continues the sum of the
+// lane before it), then the halves' sums are added, then the bias.
+template <class Team, int H, int E>
+RAPTOR_HD void team_policy_envs(const Team& tm, const Vec4* Wt,
+                                const float (*x_own)[Team::N][TeamLayout<H, Team::SIZE>::U],
+                                const float (*h)[Team::N][H],
+                                const float (*h_own)[Team::N][TeamLayout<H, Team::SIZE>::U],
+                                float (*x)[Team::N][H],
+                                float (*h_new_own)[Team::N][TeamLayout<H, Team::SIZE>::U],
+                                float (*h_new)[Team::N][H], float (*act)[Team::N][ACT]) {
+  constexpr int N = Team::N, K = Team::SIZE, G = K / 2;
+  static_assert(K % 2 == 0, "the head sums as a team of two lanes");
+  using T = TeamLayout<H, K>;
+  constexpr int U = T::U;
+  float part[E][ACT][N];
+#pragma unroll
+  for (int v = 0; v < E; ++v) tm.template gather<U>(x_own[v], x[v]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    gru_envs<H, K, E, N>(Wt, tm.lane(j), j, x, h, h_own, h_new_own);
+#pragma unroll
+    for (int v = 0; v < E; ++v) {
+#pragma unroll
+      for (int a = 0; a < ACT; ++a) part[v][a][j] = 0.f;
+    }
+  }
+  // round g: lane l with l % G == g continues the chain its predecessor
+  // handed on (lanes at 0 start from 0); the other lanes' work is redone
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (g > 0) {
+#pragma unroll
+      for (int v = 0; v < E; ++v) {
+#pragma unroll
+        for (int a = 0; a < ACT; ++a) tm.template hand_on<G>(part[v][a]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int l = tm.lane(j);
+#pragma unroll
+      for (int c = 0; c < U; ++c) {
+        const Vec4 w2 = load4(Wt + (T::W2 + c) * K + l);
+#pragma unroll
+        for (int v = 0; v < E; ++v) {
+          part[v][0][j] += w2.x * h_new_own[v][j][c];
+          part[v][1][j] += w2.y * h_new_own[v][j][c];
+          part[v][2][j] += w2.z * h_new_own[v][j][c];
+          part[v][3][j] += w2.w * h_new_own[v][j][c];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < E; ++v) tm.template gather<U>(h_new_own[v], h_new[v]);
+#pragma unroll
+  for (int v = 0; v < E; ++v) {
+#pragma unroll
+    for (int a = 0; a < ACT; ++a) tm.template halves<G>(part[v][a]);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const Vec4 b2 = load4(Wt + T::B2 * K + tm.lane(j));
+#pragma unroll
+    for (int v = 0; v < E; ++v) {
+#pragma unroll
+      for (int a = 0; a < ACT; ++a) act[v][j][a] = clip(comp(b2, a) + part[v][a][j], -1.f, 1.f);
+    }
+  }
+}
+
+// The rpm setpoints of each lane's rotors from one env's action
+template <class Team>
+RAPTOR_HD void team_setpoints(const Team& tm, const LaneParams* lp, const float (*act)[ACT],
+                              float (*sp)[TeamShape<Team::SIZE>::R]) {
+  using S = TeamShape<Team::SIZE>;
+#pragma unroll
+  for (int j = 0; j < Team::N; ++j) {
+#pragma unroll
+    for (int k = 0; k < S::R; ++k) {
+      sp[j][k] = lane_setpoint(lp[j], pick4(act[j], S::rotor(tm.lane(j), k)));
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the per-env loops
 // ---------------------------------------------------------------------------
@@ -568,8 +824,9 @@ RAPTOR_HD void team_rollout_env(const Team& tm, long i, long n, const float* par
   }
 }
 
-// Env i of n, flown by the team `tm`: a whole closed-loop episode of n_steps
-// (obs -> policy -> clip -> setpoint -> RK4 -> reward -> termination). Wt is
+// Env i of n, flown by the team `tm` (the eval kernel where E = 1): a whole
+// closed-loop episode of n_steps (obs -> policy -> clip -> setpoint -> RK4 ->
+// reward -> termination). Wt is
 // the team layout of the weights, W the flat layout (for h0). Reward and
 // length accrue while alive at step start; a terminated env keeps its
 // pre-step state, hidden state and previous action, and its team leaves the
@@ -654,6 +911,163 @@ RAPTOR_HD void team_eval_env(const Team& tm, long i, long n, const Vec4* Wt,
     if (l < S::RL) {
 #pragma unroll
       for (int k = 0; k < R; ++k) state_out[(COMMON + S::rotor(l, k)) * n + i] = u[j][k];
+    }
+  }
+}
+
+// The E envs team, team + n_teams, ... (those below n) of n, flown by the
+// team `tm` of K lanes (the eval kernel where E > 1; n_teams = ceil(n / E), so
+// the teams of a warp read neighbouring columns for each env): whole
+// closed-loop episodes of n_steps, as team_eval_env flies one. Env v's
+// physics runs on the sub-team of lanes v * Q .. v * Q + Q - 1 (Q = K / E),
+// split by rotor as team_eval_env splits it over a team of Q; each lane
+// holds its env's state, rotor lag, parameters and previous action, and
+// every env's hidden state. The policy of all E envs is split by hidden unit
+// over the K lanes, so every weight a lane loads serves the E envs. Each
+// sub-team observes its env and the observations reach every lane by the
+// team's shuffles; every lane then holds every env's action. A terminated env
+// keeps its pre-step state by a select and rides along; the team leaves the
+// loop when every env of its lanes is done, by `tm.all` (on the card the
+// team's mask is the whole warp's: the warp runs every step together). A slot
+// past n, and every slot of a team past the last (team >= n_teams), flies
+// env 0 from the start as done and is never stored. stats is [3, n]: alive,
+// length, return.
+template <class Team, int H, int E>
+RAPTOR_HD void team_eval_envs(const Team& tm, long team, long n_teams, long n,
+                              const Vec4* Wt, const float* W, const float* params,
+                              const float* state, float* state_out, float* stats,
+                              int n_steps, float dt, Bounds b, RewardWeights rw) {
+  constexpr int N = Team::N, K = Team::SIZE, Q = K / E;
+  static_assert(K % E == 0, "E envs split the team into sub-teams of K / E lanes");
+  const auto sub = tm.template sub<Q>();
+  using Sub = decltype(sub);
+  using S = TeamShape<Q>;
+  using T = TeamLayout<H, K>;
+  constexpr int U = T::U, R = S::R, NS = Sub::N, G = N / NS;
+  // this thread's lane j = g * NS + js is lane lane(j) % Q of the sub-team of
+  // env lane(j) / Q: one sub-team on the card, all E on the host
+  long idx[G];
+  int dead[G], done[G][NS];
+  LaneParams lp[G][NS];
+  float s[G][NS][COMMON], u[G][NS][R], sp[G][NS][R], s2[G][NS][COMMON], u2[G][NS][R];
+  float a[G][NS][ACT], prev[G][NS][ACT], hover[G][NS], ret[G][NS], length[G];
+  // every env's policy state
+  float h[E][N][H], h_new[E][N][H], h_own[E][N][U], h_new_own[E][N][U], x_own[E][N][U],
+      x[E][N][H], act[E][N][ACT];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    idx[g] = team + tm.lane(g * NS) / Q * n_teams;
+    dead[g] = team >= n_teams || idx[g] >= n;
+    length[g] = 0.f;
+    const long i = dead[g] ? 0 : idx[g];
+    const ParamColumn P{params + i, n};
+#pragma unroll
+    for (int js = 0; js < NS; ++js) {
+      const int ls = sub.lane(js);
+      lp[g][js] = lane_params(P);
+#pragma unroll
+      for (int c = 0; c < COMMON; ++c) s[g][js][c] = load_ro(state + c * n + i);
+#pragma unroll
+      for (int k = 0; k < R; ++k) u[g][js][k] = load_ro(state + (COMMON + S::rotor(ls, k)) * n + i);
+#pragma unroll
+      for (int c = 0; c < ACT; ++c) prev[g][js][c] = 0.f;
+      hover[g][js] = hover_action(P);
+      ret[g][js] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int c = 0; c < H; ++c) {
+      const float h0 = load_ro(W + Layout<H>::H0 + c);
+#pragma unroll
+      for (int v = 0; v < E; ++v) h[v][j][c] = h0;
+    }
+#pragma unroll
+    for (int c = 0; c < U; ++c) {
+      const float h0 = load_ro(W + Layout<H>::H0 + tm.lane(j) * U + c);
+#pragma unroll
+      for (int v = 0; v < E; ++v) h_own[v][j][c] = h0;
+    }
+  }
+  for (int t = 0; t < n_steps; ++t) {
+    float own[N][OBS], obs[N][E * OBS];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int js = 0; js < NS; ++js) observe22(s[g][js], prev[g][js], own[g * NS + js]);
+    }
+    tm.template gather<OBS, E * OBS, Q>(own, obs);  // obs[j] is [E][OBS]: env v from lane v * Q
+#pragma unroll
+    for (int j = 0; j < N; ++j) dense0_envs<H, K, E, N>(Wt, tm.lane(j), j, obs[j], x_own);
+    team_policy_envs<Team, H, E>(tm, Wt, x_own, h, h_own, x, h_new_own, h_new, act);
+    int all_dead[N];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int js = 0; js < NS; ++js) {
+        const int j = g * NS + js, v = tm.lane(j) / Q;
+#pragma unroll
+        for (int c = 0; c < ACT; ++c) {  // the action of the lane's env, by selects
+          a[g][js][c] = act[0][j][c];
+#pragma unroll
+          for (int w = 1; w < E; ++w) a[g][js][c] = v == w ? act[w][j][c] : a[g][js][c];
+        }
+      }
+      team_setpoints(sub, lp[g], a[g], sp[g]);
+      team_rk4(sub, lp[g], s[g], u[g], sp[g], dt, s2[g], u2[g]);
+      const bool was = dead[g] != 0;
+#pragma unroll
+      for (int js = 0; js < NS; ++js) {
+        const float r = reward(s2[g][js], a[g][js], hover[g][js], rw);
+        ret[g][js] = was ? ret[g][js] : ret[g][js] + r;
+        done[g][js] = terminated(s2[g][js], b);
+      }
+      sub.bcast0(done[g]);
+      length[g] = was ? length[g] : length[g] + 1.f;
+      dead[g] = was || done[g][0];
+#pragma unroll
+      for (int js = 0; js < NS; ++js) {
+#pragma unroll
+        for (int c = 0; c < COMMON; ++c) s[g][js][c] = dead[g] ? s[g][js][c] : s2[g][js][c];
+#pragma unroll
+        for (int k = 0; k < R; ++k) u[g][js][k] = dead[g] ? u[g][js][k] : u2[g][js][k];
+#pragma unroll
+        for (int c = 0; c < ACT; ++c) prev[g][js][c] = a[g][js][c];
+        all_dead[g * NS + js] = dead[g];
+      }
+    }
+    // an env that ended flies on with what no output reads
+#pragma unroll
+    for (int v = 0; v < E; ++v) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+#pragma unroll
+        for (int c = 0; c < H; ++c) h[v][j][c] = h_new[v][j][c];
+#pragma unroll
+        for (int c = 0; c < U; ++c) h_own[v][j][c] = h_new_own[v][j][c];
+      }
+    }
+    if (tm.all(all_dead)) break;
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const long i = idx[g];
+    if (team >= n_teams || i >= n) continue;
+#pragma unroll
+    for (int js = 0; js < NS; ++js) {
+      const int ls = sub.lane(js);
+      if (ls == 0) {
+#pragma unroll
+        for (int c = 0; c < COMMON; ++c) state_out[c * n + i] = s[g][js][c];
+        stats[i] = dead[g] ? 0.f : 1.f;
+        stats[n + i] = length[g];
+        stats[2 * n + i] = ret[g][js];
+      }
+      if (ls < S::RL) {
+#pragma unroll
+        for (int k = 0; k < R; ++k) state_out[(COMMON + S::rotor(ls, k)) * n + i] = u[g][js][k];
+      }
     }
   }
 }

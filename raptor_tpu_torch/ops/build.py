@@ -159,8 +159,9 @@ def cuda_library() -> ctypes.CDLL:
     `raptor_bptt_backward_<H>` for H in `HIDDEN_WIDTHS`, and
     `raptor_fma_peak` (which also fills an int[3] with its chains a thread,
     block and grid) take a stream last and return cudaGetLastError();
-    `raptor_rollout_threads_per_env`, `raptor_eval_threads_per_env` and
-    `raptor_collect_threads_per_env_<H>` return the lanes of a team."""
+    `raptor_rollout_threads_per_env`, `raptor_eval_lanes_<H>` and
+    `raptor_collect_threads_per_env_<H>` return the lanes of a team, and
+    `raptor_eval_envs_<H>` the envs an eval team flies."""
     units = " ".join(f"{src}{''.join(defs)}" for src, defs in CUDA_UNITS)
     return _load(
         "raptor_cuda", CUDA_SOURCES, (*NVCC_FLAGS, units), _build_cuda,
@@ -172,7 +173,8 @@ def cuda_library() -> ctypes.CDLL:
             **{f"raptor_bptt_backward_{h}": BPTT_BACKWARD_ARGS + [_P] for h in HIDDEN_WIDTHS},
             "raptor_fma_peak": FMA_PEAK_ARGS + [_P, _P],
             "raptor_rollout_threads_per_env": [],
-            "raptor_eval_threads_per_env": [],
+            **{f"raptor_eval_lanes_{h}": [] for h in HIDDEN_WIDTHS},
+            **{f"raptor_eval_envs_{h}": [] for h in HIDDEN_WIDTHS},
             **{f"raptor_collect_threads_per_env_{h}": [] for h in HIDDEN_WIDTHS},
         },
     )
@@ -211,7 +213,9 @@ def host_library() -> ctypes.CDLL:
     entry points without the stream (and the geometry), the eval and collect
     ones with the hidden width after n_steps (-1 for one not built);
     `raptor_collect_team_host`: the collect at hidden width 16 with the lanes
-    of a team (1, 2, 4 or 8) in the width's place; `raptor_bptt_host`: the
+    of a team (1, 2, 4 or 8) in the width's place; `raptor_eval_unblocked_host`:
+    `raptor_eval_host` with one env a team, and `raptor_eval_envs_host(hidden)`
+    the envs a team of `raptor_eval_host`; `raptor_bptt_host`: the
     BPTT's forward, backward and gradient sum in one call, the hidden width
     last; `raptor_hash_host` and
     `raptor_sample_state_host`: the collect kernel's PRNG and sampler on
@@ -221,6 +225,8 @@ def host_library() -> ctypes.CDLL:
         {
             "raptor_rollout_host": ROLLOUT_ARGS,
             "raptor_eval_host": EVAL_ARGS[:7] + [_I] + EVAL_ARGS[7:],
+            "raptor_eval_unblocked_host": EVAL_ARGS[:7] + [_I] + EVAL_ARGS[7:],
+            "raptor_eval_envs_host": [_I],
             "raptor_collect_host": COLLECT_ARGS[:6] + [_I] + COLLECT_ARGS[6:],
             "raptor_collect_team_host": COLLECT_ARGS[:6] + [_I] + COLLECT_ARGS[6:],
             "raptor_fma_peak_host": FMA_PEAK_ARGS,

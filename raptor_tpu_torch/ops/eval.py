@@ -18,7 +18,8 @@ reward and length accrue while the env is alive at step start.
 `eval_soa` is the kernel's wrapper: a CUDA tensor launches the kernel (or
 raises), a CPU tensor takes `eval_plain`. Each launch counts in
 `utils.profiling.launches`.
-The kernel flies each env on a team of lanes (`threads_per_env()`).
+The kernel flies `envs_per_team()` envs on each team of `lanes_per_team()`
+lanes, `threads_per_env()` lanes an env.
 """
 
 from __future__ import annotations
@@ -102,9 +103,44 @@ def require_built(hidden: int, obs_dim: int = OBS, kernels: str = "eval and coll
         )
 
 
-def threads_per_env() -> int:
-    """Lanes of a team that fly one env in the eval kernel (builds it)."""
-    return build.cuda_library().raptor_eval_threads_per_env()
+def lanes_per_team(hidden: int = network.HIDDEN_DIM) -> int:
+    """Lanes of a team of the eval kernel at a hidden width (builds it); the
+    team flies `envs_per_team(hidden)` envs."""
+    return getattr(build.cuda_library(), f"raptor_eval_lanes_{hidden}")()
+
+
+def threads_per_env(hidden: int = network.HIDDEN_DIM) -> int:
+    """Lanes of the eval kernel that fly one env's physics at a hidden width
+    (builds it): a team's lanes over its envs."""
+    return lanes_per_team(hidden) // envs_per_team(hidden)
+
+
+def envs_per_team(hidden: int = network.HIDDEN_DIM) -> int:
+    """Envs a team of the eval kernel flies at a hidden width (builds it):
+    every weight a lane loads serves them all."""
+    return getattr(build.cuda_library(), f"raptor_eval_envs_{hidden}")()
+
+
+def ride_along_share(length: torch.Tensor, envs: int, lanes: int) -> float:
+    """The waste of flying `envs` envs on each team of `lanes` lanes, from the
+    kernel's output lengths [N]: the env-steps flown for envs already done
+    (and for the empty slots past N) over the env-steps run. Team t flies
+    envs t, t + ceil(N / envs), ...; with several envs a team, a warp's
+    32 / lanes teams fly every step together, as long as its longest env.
+    With one env a team, a team leaves the loop when its env is done."""
+    if envs == 1:
+        return 0.0
+    n = length.numel()
+    n_teams = -(-n // envs)
+    per_warp = 32 // lanes
+    n_warps = -(-n_teams // per_warp)
+    slots = length.new_zeros(envs * n_teams)
+    slots[:n] = length.reshape(-1)
+    slots = torch.nn.functional.pad(slots.view(envs, n_teams), (0, n_warps * per_warp - n_teams))
+    # slot (v, t) holds env t + v * n_teams; a row of `warps`, a warp's slots
+    warps = slots.view(envs, n_warps, per_warp).permute(1, 0, 2).reshape(n_warps, -1)
+    flown = warps.amax(1) * warps.shape[1]
+    return float((flown - warps.sum(1)).sum() / length.sum())
 
 
 def flatten_policy(policy_params: network.Params) -> torch.Tensor:

@@ -15,11 +15,14 @@ resets, reset masks equal on >= 99.9 % of entries under truncation, and
 observations within 1e-5 where every row is a fresh draw of the in-kernel
 PRNG; the same at widths that are no multiple of the warp size (37, and the
 944 and 5,528 envs of a distillation round and of the 691-teacher union).
-The three kernels fly an env on a team of lanes: they are held at those env
+The three kernels fly an env on a team of lanes (the eval kernel several
+envs on one team): they are held at those env
 counts (and the rollout and eval kernels at 16,384: ragged teams and warps),
 the eval kernel at every hidden width it is built for, the collect kernel at
 widths 32 and 48 (48: the most registers and shared memory), with students
-whose biases and h0 are drawn too.
+whose biases and h0 are drawn too; the eval kernel also where the envs of a
+team end at different steps, and where its GRU gates leave the range of
+their branch-free reciprocal.
 """
 
 import re
@@ -154,6 +157,49 @@ def test_eval_kernel_matches_plain_at_hidden_width(inputs, card, hidden):
     torch.cuda.synchronize()
     assert launches["eval"] == before + 1
     assert 0 < int(got[1][0].sum()) < N  # some envs terminated, some flew on
+    assert_eval_agrees(got, want, N)
+
+
+@pytest.mark.cuda
+def test_eval_kernel_matches_plain_with_early_ends_inside_teams(inputs, card):
+    """Every third env starts at the position bound flying out and ends at
+    step 3 or 4, beside envs from the eval-parity init that fly on: the envs of a
+    team (t, t + ceil(N / E), ...) end at different steps, and those that
+    ended ride along."""
+    from raptor_tpu_torch.env import eval_parity_init
+
+    policy, weights = inputs[3], inputs[4]
+    g = torch.Generator(device=card).manual_seed(3)
+    frames = sample_population(g, N)
+    ps = frames.to_soa()
+    ss = L2F(EnvConfig(init=eval_parity_init())).reset(frames, g)[0].dynamics.to_soa()
+    early = torch.arange(N, device=card) % 3 == 0
+    ss[0, early], ss[7, early] = 0.585, 0.6  # x and its velocity: past 0.6 at step 3 or 4
+    got = ops_eval.eval_soa(weights, ps, ss, 100)
+    want = ops_eval.eval_plain(policy, ps, ss, 100)
+    torch.cuda.synchronize()
+    assert_eval_agrees(got, want, N)
+    length = got[1][1]
+    assert float(length[early].max()) <= 4 and float(length[~early].mean()) > 90
+    share = ops_eval.ride_along_share(length, ops_eval.envs_per_team(), ops_eval.lanes_per_team())
+    assert (share > 0.1) == (ops_eval.envs_per_team() > 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [16, 48])
+def test_eval_kernel_gates_out_of_range_match_plain(inputs, card, hidden):
+    """A student whose GRU r and z gates see pre-activations of -200 on
+    every unit: 1 + exp(200) is inf, where the eval kernel's branch-free
+    reciprocal (`recip_fast`) leaves its range and the unit's gates take the
+    IEEE division (without that, the gate would read NaN)."""
+    ps, ss = inputs[0], inputs[1]
+    policy = student(card, hidden)
+    policy["gru_1"]["biases_input"][: 2 * hidden] = -200.0
+    weights = ops_eval.flatten_policy(policy)
+    got = ops_eval.eval_soa(weights, ps, ss, 25)
+    want = ops_eval.eval_plain(policy, ps, ss, 25)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got[1]).all())
     assert_eval_agrees(got, want, N)
 
 
