@@ -75,12 +75,28 @@ def n_student_weights(obs: int = 22, hidden: int = 16, actions: int = 4) -> int:
 ADAM_FLOPS_PER_WEIGHT = 12  # two moments, two bias corrections, sqrt, eps, scale, update
 
 
+def bptt_flops(batch: int, seq_len: int, obs: int = 22, hidden: int = 16,
+               actions: int = 4) -> float:
+    """The loss and its gradient over one minibatch: the forward over batch x
+    seq_len sample-steps, and the backward counted as twice the forward."""
+    return float(3 * batch * seq_len * student_forward_flops(obs, hidden, actions))
+
+
+def bptt_bytes(batch: int, seq_len: int, obs: int = 22, hidden: int = 16,
+               actions: int = 4) -> float:
+    """The gathered minibatch (observations, teacher actions and reset flags,
+    float32) and the weights read once; the gradient and the loss written
+    once."""
+    n_weights = n_student_weights(obs, hidden, actions)
+    return 4.0 * (batch * seq_len * (obs + actions + 1) + 2 * n_weights + 1)
+
+
 def distill_step_flops(batch: int, seq_len: int, obs: int = 22, hidden: int = 16,
                        actions: int = 4) -> float:
-    """One gradient step: forward over batch x seq_len sample-steps, the
-    backward counted as twice the forward, and Adam over the weights."""
-    fwd = batch * seq_len * student_forward_flops(obs, hidden, actions)
-    return float(3 * fwd + ADAM_FLOPS_PER_WEIGHT * n_student_weights(obs, hidden, actions))
+    """One gradient step: the loss and its gradient (`bptt_flops`), and Adam
+    over the weights."""
+    return (bptt_flops(batch, seq_len, obs, hidden, actions)
+            + ADAM_FLOPS_PER_WEIGHT * n_student_weights(obs, hidden, actions))
 
 
 # -- the SAC teacher farm ----------------------------------------------------

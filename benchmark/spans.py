@@ -1,21 +1,17 @@
 """The program's phase spans in the device trace of a traced sub-window: the
 `raptor.*` ranges that `raptor_tpu_torch.utils.profiling.span` records while
-a profiler runs, read from the events that `tracing.DeviceTrace` kept.
+a profiler runs, which `tracing.DeviceTrace` keeps apart from the host
+operators (so that `idle_gaps` still groups the gaps by the widest operator,
+where a span would otherwise be the widest).
 
 Each device kernel is put in the innermost span that holds its launch's host
-time. The kernel and the CUDA runtime or driver call that launched it share a
-correlation id, and the call's host time is on the spans' clock. The
-kernel's own device time is not used: it lags its launch, and on an H100
-under torch 2.11 the device's timestamps stand off the host's by an offset
-and a drift that differ from process to process (up to 14 ms over a 3.5 s
-trace). An idle gap likewise goes to the span that launched the kernel or
-copy ending it. A span's self time is its duration less what its child
-spans cover.
-
-`SpanTrace` reads one `DeviceTrace` and takes the spans out of its host
-operators, so that `idle_gaps` still groups the gaps by the widest operator
-(a span would otherwise be the widest): the routing `DeviceTrace._read` does
-not do itself. `of(ctx)` reads the run's trace once for every reader.
+time (`DeviceTrace.launch`: the kernel and the CUDA runtime or driver call
+that launched it share a correlation id, and the call's host time is on the
+spans' clock). The kernel's own device time is not used: it lags its launch,
+and the device's clock stands off the host's. An idle gap likewise goes to
+the span that launched the kernel or copy ending it (`DeviceTrace.gaps`). A
+span's self time is its duration less what its child spans cover. `of(ctx)`
+reads the run's trace once for every reader.
 """
 
 from __future__ import annotations
@@ -23,13 +19,9 @@ from __future__ import annotations
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
-import torch
+from tracing import NAME_CHARS, SPAN_PREFIX as PREFIX
 
-from tracing import NAME_CHARS, _ns
-
-PREFIX = "raptor."
 OUTSIDE = "outside any program span"
-LAUNCH_PREFIX = "cu"  # the CUDA runtime and driver calls: cudaLaunchKernel, cuLaunchKernel, ...
 
 Span = Tuple[str, int, int]
 
@@ -58,24 +50,10 @@ def innermost(spans: Sequence[Span], times: Sequence[int]) -> List[Optional[int]
 class SpanTrace:
     """The spans of one `DeviceTrace`, and its kernels put in them."""
 
-    def __init__(self, trace, events=None):
+    def __init__(self, trace):
         self.trace = trace
-        self.spans: List[Span] = [op for op in trace.host_ops if op[0].startswith(PREFIX)]
-        trace.host_ops[:] = [op for op in trace.host_ops if not op[0].startswith(PREFIX)]
-        if events is None:
-            prof = getattr(trace, "_prof", None)
-            events = prof.profiler.kineto_results.events() if prof is not None else []
-        cpu = torch.autograd.DeviceType.CPU
-        launch_ns: Dict[int, int] = {}
-        device_corr: Dict[Span, int] = {}
-        for ev in events:
-            if ev.device_type() == cpu:
-                if ev.name().startswith(LAUNCH_PREFIX):
-                    launch_ns[ev.correlation_id()] = _ns(ev, "start")
-            else:
-                device_corr[(ev.name(), _ns(ev, "start"), _ns(ev, "end"))] = ev.correlation_id()
-        # device event -> the host time of the call that launched it
-        self.launch = {k: launch_ns[c] for k, c in device_corr.items() if c in launch_ns}
+        self.spans: List[Span] = trace.spans
+        self.launch = trace.launch  # device event -> the host time of the call that launched it
         launched = [k for k in trace.kernels if k in self.launch]
         where = innermost(self.spans, [self.launch[k] for k in launched])
         # (kernel, launch host ns, index of its span or None)
@@ -130,16 +108,8 @@ class SpanTrace:
     def idle_by_span(self, k: int = 10):
         """The gaps that `DeviceTrace.idle_gaps` reads, each put in the
         innermost span that holds the launch of the kernel or copy that ends
-        it: the host work the card waited for. Where that launch is not in
-        the trace, the gap's middle stands in for it. The launch is on the
-        spans' clock; the gap is on the device's, which can drift from it
-        over a trace of seconds."""
-        gaps: List[Tuple[int, int]] = []  # (idle ns, host ns it waited for)
-        end = None
-        for ev in sorted(self.trace.kernels + self.trace.copies, key=lambda s: s[1]):
-            if end is not None and ev[1] > end:
-                gaps.append((ev[1] - end, self.launch.get(ev, (end + ev[1]) // 2)))
-            end = ev[2] if end is None else max(end, ev[2])
+        it: the host work the card waited for (`DeviceTrace.gaps`)."""
+        gaps = self.trace.gaps()
         total = defaultdict(int)
         for (idle, _), i in zip(gaps, innermost(self.spans, [t for _, t in gaps])):
             total[OUTSIDE if i is None else self.spans[i][0][:NAME_CHARS]] += idle

@@ -1,8 +1,10 @@
 """The program's spans in the device trace (`spans.py`): kernels go to the
 innermost span that holds their launch, joined by correlation id; self time
-leaves out the children; taking the spans out of the host operators leaves
-every reading of `DeviceTrace` as it is without them; the span metrics read
-a traced cell, and nothing where the program records no span."""
+leaves out the children; keeping the spans apart from the host operators
+leaves every reading of `DeviceTrace` as it is without them; an idle gap
+goes to the widest host operator holding the launch that ends it, whatever
+the offset of the device's clock; the span metrics read a traced cell, and
+nothing where the program records no span."""
 
 from types import SimpleNamespace
 
@@ -14,6 +16,7 @@ import tinycell
 
 import core
 import spans
+import tracing
 from tracing import DeviceTrace
 
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -76,7 +79,7 @@ def test_kernels_go_to_the_innermost_span_of_their_launch():
     events += launched("k_outside", 150, 160, 170, 4)
     events += launched("k_forward", 220, 230, 240, 5)
     events.append(Ev("k_lost", 300, 310, "kernel", 99))  # its launch is not in the trace
-    st = spans.SpanTrace(trace_of(events), events)
+    st = spans.SpanTrace(trace_of(events))
     stats = st.stats()
     assert stats["raptor.distill.gather"]["launches"] == 1
     assert stats["raptor.distill.forward"]["launches"] == 2
@@ -97,6 +100,67 @@ def test_kernels_go_to_the_innermost_span_of_their_launch():
     assert idle == pytest.approx({"raptor.distill.forward": 65e-9, "raptor.distill.step": 5e-9,
                                   spans.OUTSIDE: 125e-9})
     assert sum(idle.values()) == pytest.approx(sum(t for _, t in st.trace.idle_gaps()))
+
+
+MS = 1_000_000  # ns
+
+
+def middle_rule(tr):
+    """The idle gaps grouped by the widest host operator in progress at each
+    gap's middle on the device's clock: the attribution `idle_gaps` made
+    before it followed the closing launch."""
+    outer = []
+    for name, a, b in sorted(tr.host_ops, key=lambda s: (s[1], -s[2])):
+        if not outer or a >= outer[-1][2]:
+            outer.append((name, a, b))
+    busy, total = tr.busy_intervals(), {}
+    for (_, end), (start, _) in zip(busy[:-1], busy[1:]):
+        mid = (end + start) // 2
+        hit = [n for n, a, b in outer if a <= mid <= b]
+        name = hit[0] if hit else tracing.OUTSIDE_OPS
+        total[name] = total.get(name, 0) + start - end
+    return {n: t * 1e-9 for n, t in total.items()}
+
+
+def test_idle_gaps_follow_the_closing_launch_across_a_clock_offset():
+    """The device's clock 14 ms ahead of the host's: each gap goes to the
+    widest operator holding the launch of the kernel that ends it, and the
+    middle of the gap, read against host operators, would name operators
+    that launched nothing."""
+    off = 14 * MS
+    events = [
+        Ev("aten::index", 0, 1 * MS, "cpu_op"),
+        Ev("aten::outer", 4 * MS, 6 * MS, "cpu_op"),
+        Ev("aten::inner", 4 * MS + 10, 5 * MS, "cpu_op"),  # inside aten::outer
+        Ev("aten::item", 15 * MS, 20 * MS, "cpu_op"),  # launches nothing
+        Ev("raptor.env.reset", 3 * MS, 7 * MS, "user_annotation"),
+    ]
+    events += launched("k_first", 100, off + 200, off + 1 * MS, 1)
+    events += launched("k_second", 4 * MS + 100, off + 5 * MS, off + 6 * MS, 2)  # in aten::inner
+    events += launched("k_third", 8 * MS, off + 9 * MS, off + 10 * MS, 3)  # in no operator
+    tr = trace_of(events)
+    gaps = dict(tr.idle_gaps())
+    assert gaps == pytest.approx({"aten::outer": 4 * MS * 1e-9,
+                                  tracing.OUTSIDE_OPS: 3 * MS * 1e-9})
+    # the middles (17 ms and 21.5 ms on the device's clock) fall in aten::item or after it
+    assert middle_rule(tr) == pytest.approx({"aten::item": 4 * MS * 1e-9,
+                                             tracing.OUTSIDE_OPS: 3 * MS * 1e-9})
+    assert sum(gaps.values()) == pytest.approx(sum(middle_rule(tr).values()))
+    assert dict(spans.SpanTrace(tr).idle_by_span()) == pytest.approx(
+        {"raptor.env.reset": 4 * MS * 1e-9, spans.OUTSIDE: 3 * MS * 1e-9})
+
+
+def test_idle_gap_falls_back_to_its_middle_without_the_launch():
+    """A gap whose closing kernel has no launch in the trace goes to the
+    widest operator at its middle; the others still follow their launch."""
+    events = [Ev("aten::mm", 0, 100, "cpu_op"), Ev("aten::copy_", 200, 300, "cpu_op"),
+              Ev("aten::add", 400, 700, "cpu_op")]
+    events += launched("k_a", 10, 20, 30, 1)
+    events.append(Ev("k_lost", 500, 510, "kernel", 99))  # gap 30-500, middle 265
+    events += launched("k_b", 450, 600, 610, 2)  # gap 510-600, launched in aten::add
+    tr = trace_of(events)
+    assert tr.gaps() == [(470, 265), (90, 450)]
+    assert dict(tr.idle_gaps()) == pytest.approx({"aten::copy_": 470e-9, "aten::add": 90e-9})
 
 
 def test_innermost_holds_at_the_edges_and_between_spans():
@@ -132,7 +196,8 @@ def profiled_distill_round():
 def test_taking_the_spans_out_leaves_every_reading_as_without_them():
     """On CPU-profiled events with spans, plus a kernel a while after every
     third operator, each reading of the trace equals its value on the same
-    events with the spans filtered out."""
+    events with the spans filtered out; put back among the host operators,
+    the spans would change the idle gaps."""
     host = profiled_distill_round()
     assert any(e.name().startswith(spans.PREFIX) for e in host)
     ops = sorted((e for e in host if e.activity_type() == "cpu_op"), key=lambda e: e.start_ns())
@@ -143,7 +208,8 @@ def test_taking_the_spans_out_leaves_every_reading_as_without_them():
                          e.start_ns() + lag + 500, corr)
     with_spans = trace_of(host + fake, window_s=0.5)
     unrouted = trace_of(host + fake, window_s=0.5)
-    st = spans.SpanTrace(with_spans, host + fake)
+    unrouted.host_ops += unrouted.spans
+    st = spans.SpanTrace(with_spans)
     plain = trace_of([e for e in host if not e.name().startswith(spans.PREFIX)] + fake,
                      window_s=0.5)
 
@@ -175,7 +241,7 @@ def test_span_metrics_per_unit():
               Ev("raptor.env.reset", 1_000_000, 1_500_000, "user_annotation")]
     events += launched("k", 10, 20, 30, 1) + launched("k", 1_200_000, 1_300_000, 1_300_010, 2)
     ctx = fake_ctx(trace_of(events), {"trace_steps": 2})
-    ctx.stats["program_spans"] = spans.SpanTrace(ctx.device_trace, events)
+    ctx.stats["program_spans"] = spans.SpanTrace(ctx.device_trace)
     names = ["env.sample_population", "env.reset"]
     assert spans.host_ms(ctx, names) == pytest.approx(0.75)
     assert spans.launches(ctx, names) == 1.0
@@ -183,7 +249,7 @@ def test_span_metrics_per_unit():
 
 
 SPAN_METRICS = {
-    "distill_train": {"distill_forward_host_ms", "distill_backward_host_ms"},
+    "distill_train": {"distill_optimizer_host_ms"},
     "eval_population": {"eval_sampler_host_ms", "eval_pack_host_ms"},
     "eval_checkpoints": {"eval_pack_host_ms"},
 }

@@ -6,7 +6,15 @@ From it: the seconds in which an operation ran on the device (the union of
 kernel, copy and set intervals), the traced window's length on the host's
 clock, kernel launches, the device time of the kernels whose name holds a
 given string, and the breakdown (device operations by time; idle gaps by the
-host operation in progress at their middle).
+host operation that launched the kernel or copy ending each gap).
+
+Each device event is joined to the CUDA runtime or driver call that launched
+it by their shared correlation id (`launch`), so that a device event has a
+time on the host's clock. Its own device time is not compared with host
+times: on an H100 under torch 2.11 the device's timestamps stand off the
+host's by an offset and a drift that differ from process to process (up to
+14 ms over a 3.5 s trace). The program's phase spans (`raptor.*` ranges) are
+kept apart from the host operators; `spans.py` reads both.
 """
 
 from __future__ import annotations
@@ -14,11 +22,14 @@ from __future__ import annotations
 import bisect
 import time
 from collections import defaultdict
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 NAME_CHARS = 120
+SPAN_PREFIX = "raptor."  # the program's phase spans (`raptor_tpu_torch.utils.profiling.span`)
+LAUNCH_PREFIX = "cu"  # the CUDA runtime and driver calls: cudaLaunchKernel, cuLaunchKernel, ...
+OUTSIDE_OPS = "host outside any operator"
 
 
 def _ns(ev, which: str) -> int:
@@ -40,6 +51,8 @@ class DeviceTrace:
         self.kernels: List[Tuple[str, int, int]] = []
         self.copies: List[Tuple[str, int, int]] = []
         self.host_ops: List[Tuple[str, int, int]] = []
+        self.spans: List[Tuple[str, int, int]] = []
+        self.launch: Dict[Tuple[str, int, int], int] = {}  # device event -> its launch's host ns
         self.window_s = 0.0
 
     def _sync(self):
@@ -69,8 +82,11 @@ class DeviceTrace:
     def _read(self, events):
         """Device events by kind (kernels; copies and sets), with the user
         annotations that a library records on the device timeline (such as an
-        optimizer's step) left out; host operators and annotations apart."""
+        optimizer's step) left out; host operators, the program's spans and
+        the launch of each device event apart."""
         cpu = torch.autograd.DeviceType.CPU
+        launch_ns: Dict[int, int] = {}
+        device_corr: Dict[Tuple[str, int, int], int] = {}
         for ev in events:
             name = ev.name()
             span = (name, _ns(ev, "start"), _ns(ev, "end"))
@@ -82,8 +98,14 @@ class DeviceTrace:
                 copy = kind in ("gpu_memcpy", "gpu_memset") or name.startswith(
                     ("Memcpy", "Memset"))
                 (self.copies if copy else self.kernels).append(span)
-            elif not name.startswith(("cuda", "cu", "ProfilerStep")):
+                device_corr[span] = ev.correlation_id()
+            elif name.startswith(LAUNCH_PREFIX):
+                launch_ns[ev.correlation_id()] = span[1]
+            elif name.startswith(SPAN_PREFIX):
+                self.spans.append(span)
+            elif not name.startswith("ProfilerStep"):
                 self.host_ops.append(span)
+        self.launch = {k: launch_ns[c] for k, c in device_corr.items() if c in launch_ns}
 
     # -- readings -------------------------------------------------------
     def launches(self) -> int:
@@ -117,20 +139,32 @@ class DeviceTrace:
             total[name[:NAME_CHARS]] += b - a
         return [[n, t * 1e-9] for n, t in sorted(total.items(), key=lambda x: -x[1])[:k]]
 
+    def gaps(self) -> List[Tuple[int, int]]:
+        """(idle ns, host ns of the launch that ends it) of each gap between
+        the intervals of `busy_intervals`: the launch of the kernel or copy
+        that starts the next interval, on the host's clock. Where that launch
+        is not in the trace, the gap's middle on the device's clock stands in
+        for it."""
+        out: List[Tuple[int, int]] = []
+        end = None
+        for ev in sorted(self.kernels + self.copies, key=lambda s: s[1]):
+            if end is not None and ev[1] > end:
+                out.append((ev[1] - end, self.launch.get(ev, (end + ev[1]) // 2)))
+            end = ev[2] if end is None else max(end, ev[2])
+        return out
+
     def idle_gaps(self, k: int = 10):
-        """Idle device time grouped by the widest host operation in progress
-        at each gap's middle (gaps inside the traced device span)."""
-        busy = self.busy_intervals()
+        """Idle device time grouped by the widest host operation holding the
+        launch of the kernel or copy that ends each gap (gaps inside the
+        traced device span): the host work the card waited for."""
         outer: List[Tuple[str, int, int]] = []  # host operations not inside another
         for name, a, b in sorted(self.host_ops, key=lambda s: (s[1], -s[2])):
             if not outer or a >= outer[-1][2]:
                 outer.append((name, a, b))
         starts = [a for _, a, _ in outer]
         total = defaultdict(int)
-        for (_, end), (start, _) in zip(busy[:-1], busy[1:]):
-            mid = (end + start) // 2
-            i = bisect.bisect_right(starts, mid) - 1
-            hit = i >= 0 and outer[i][2] >= mid
-            name = outer[i][0][:NAME_CHARS] if hit else "host outside any operator"
-            total[name] += start - end
+        for idle, t in self.gaps():
+            i = bisect.bisect_right(starts, t) - 1
+            hit = i >= 0 and outer[i][2] >= t
+            total[outer[i][0][:NAME_CHARS] if hit else OUTSIDE_OPS] += idle
         return [[n, t * 1e-9] for n, t in sorted(total.items(), key=lambda x: -x[1])[:k]]
